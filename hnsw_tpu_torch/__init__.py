@@ -1,0 +1,33 @@
+"""hnsw_tpu_torch — the PyTorch/CUDA port of hnsw_tpu for NVIDIA Hopper.
+
+The JAX package ``hnsw_tpu`` stays the reference; this package imports
+``torch`` and never ``jax``. It keeps the reference's module names:
+
+- ``core``: spaces and padded-CSR graphs (host numpy, device tensors);
+- ``native``: the reference's C++ builder, compiled by path and bound with
+  ctypes;
+- ``io``: the reference's .npz checkpoint format;
+- ``ops``: distances, top-k, the unified node-block tables with their two
+  hand-written CUDA kernels (``ops.gather_kernels``, sources in ``csrc/``),
+  and the batched beam traversal;
+- ``models``: the exact bruteforce oracle and HNSWIndex;
+- ``convert``: numpy-only conversion of the JAX package's state.
+"""
+
+from hnsw_tpu_torch.core.graph import HNSWGraph, graph_device_arrays
+from hnsw_tpu_torch.core.spaces import CosineSpace, IPSpace, L2Space, Space, get_space
+from hnsw_tpu_torch.models.bruteforce import BruteforceIndex
+from hnsw_tpu_torch.models.hnsw import HNSWIndex, SearchParams
+
+__all__ = [
+    "HNSWGraph",
+    "graph_device_arrays",
+    "Space",
+    "L2Space",
+    "IPSpace",
+    "CosineSpace",
+    "get_space",
+    "BruteforceIndex",
+    "HNSWIndex",
+    "SearchParams",
+]
