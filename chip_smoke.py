@@ -12,6 +12,12 @@ Phase 2  the main path at bench.py's operating point (N=100k clustered
          ef=200 and (c) the high-recall mode with exact rescore, each gated on
          recall against the port's exact fp32 oracle, with the kernels'
          launch counts read around each mode.
+Phase 3  the serving tiers below bf16 at N=1M (d=128, M=16, efC=200, the
+         reference's clustered data with 4096 centers), each tier chosen with
+         rebuild_device_tables(unified_max_bytes=...): (d) int8 with f32
+         storage and the auto rescore, (e) int4 with bf16 storage (the
+         reference's N=4M serving configuration, cut to 1M), and (f) the
+         exact l2u8 space on 100k uint8 vectors over lossless int8 codes.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -30,6 +36,9 @@ N, DIM, M, EF_C, K = 100_000, 128, 16, 200, 10
 BATCH = 8192
 SEED = 123
 EXPECTED_RECALL = 0.9945  # bench.py's operating point, for information only
+N_TIERS, N_U8, NQ_TIERS = 1_000_000, 100_000, 1024
+# the H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor) flop/s
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 def log(*a):
@@ -48,7 +57,8 @@ def smi_name_power() -> str:
 
 
 def make_dataset(n, dim, rng, n_clusters=1024, spread=0.5):
-    """bench.py's clustered gaussian mixture (copied, not imported)."""
+    """bench.py's clustered gaussian mixture (copied, not imported);
+    bin/sweep2m.py's with n_clusters=4096."""
     centers = rng.normal(size=(n_clusters, dim)).astype(np.float32)
     assign = rng.integers(0, n_clusters, size=n)
     return centers[assign] + spread * rng.normal(size=(n, dim)).astype(np.float32)
@@ -78,9 +88,22 @@ def timed_pair(kernel, plain) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the f32 rate, whichever is larger."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return {"bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: each kernel against its plain version.
 # ---------------------------------------------------------------------------
+
+# per tier: bytes of one neighbor row (codes or values, plus payload id and,
+# when quantized, scale) and f32 operations per lane (dequant, sub, fma)
+HOP_ROW_BYTES = {"bf16": lambda d: 2 * d + 4, "int8": lambda d: d + 8,
+                 "int4": lambda d: d // 2 + 8}
+HOP_OPS = {"bf16": 3, "int8": 4, "int4": 4}
 
 
 def phase1(dev) -> dict:
@@ -94,86 +117,118 @@ def phase1(dev) -> dict:
     log(f"[phase1] kernels built and loaded in {time.time() - t0:.1f}s")
     with open(LOG_PATH) as fh:
         for line in fh:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("[phase1] ptxas:", line.strip())
 
     rng = np.random.default_rng(7)
     out = {}
 
-    def hop_case(b, e, m0, d, space, rows, timed):
-        vecs = torch.from_numpy(
-            rng.normal(size=(rows, m0, -(-d // 8) * 8)).astype(np.float32)
-        ).to(dev).to(torch.bfloat16)
-        vecs[:, :, d:] = 0
-        table = gk.UnifiedTable(
-            vecs.contiguous(),
-            torch.from_numpy(rng.integers(0, 1 << 30, size=(rows, m0)).astype(np.int32)).to(dev),
-        )
+    def make_table(tier, rows, m0, d):
+        d_pad = -(-d // 8) * 8
+        payload = torch.from_numpy(
+            rng.integers(0, 1 << 30, size=(rows, m0)).astype(np.int32)).to(dev)
+        if tier == "bf16":
+            vecs = torch.from_numpy(
+                rng.normal(size=(rows, m0, d_pad)).astype(np.float32)).to(dev).to(torch.bfloat16)
+            vecs[:, :, d:] = 0
+            return gk.UnifiedTable(vecs.contiguous(), payload)
+        qmax = 127 if tier == "int8" else 7
+        codes = torch.from_numpy(
+            rng.integers(-qmax, qmax + 1, size=(rows, m0, d_pad)).astype(np.int8)).to(dev)
+        codes[:, :, d:] = 0
+        scales = torch.from_numpy(
+            rng.uniform(0.01, 0.1, size=(rows, m0)).astype(np.float32)).to(dev)
+        if tier == "int8":
+            return gk.Unified8Table(codes.contiguous(), scales, payload)
+        return gk.Unified4Table(gk.pack_int4(codes).contiguous(), scales, payload)
+
+    def hop_case(tier, b, e, m0, d, space, rows, timed):
+        table = make_table(tier, rows, m0, d)
         q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
         chosen = torch.from_numpy(rng.integers(0, rows, size=(b, e)).astype(np.int32)).to(dev)
         dk, ik = gk.hop_dist_unified(q, table, chosen, space)
         dp, ip_ = gk.hop_dist_unified_plain(q, table, chosen, space)
         torch.cuda.synchronize()
+        tag = f"{tier} hop B={b} E={e} m0={m0} d={d} {space}"
         if not torch.equal(ik, ip_):
-            fail(f"hop ids differ at B={b} E={e} m0={m0} d={d} {space}")
+            fail(f"{tag}: ids differ")
         if not torch.allclose(dk, dp, rtol=1e-5, atol=1e-4):
-            fail(f"hop dists differ at B={b} E={e} m0={m0} d={d} {space}: "
-                 f"max {float((dk - dp).abs().max())}")
+            fail(f"{tag}: dists differ, max {float((dk - dp).abs().max())}")
         err = float((dk - dp).abs().max())
-        msg = f"[phase1] hop B={b} E={e} m0={m0} d={d} {space}: ok, max_abs_err {err:.3e}"
+        msg = f"[phase1] {tag}: ok, max_abs_err {err:.3e}"
         res = {"err": err}
         if timed:
             ms, pms = timed_pair(lambda: gk.hop_dist_unified(q, table, chosen, space),
                                  lambda: gk.hop_dist_unified_plain(q, table, chosen, space))
-            gb = b * e * m0 * (table.d_pad * 2 + 4) / 1e9
-            msg += (f", kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s), "
-                    f"plain {pms:.4f} ms")
-            res.update(ms=ms, plain_ms=pms)
+            # each distinct chosen block read once; q and chosen read, both
+            # outputs written once
+            blocks = int(torch.unique(chosen).numel())
+            nbytes = (blocks * m0 * HOP_ROW_BYTES[tier](table.d_pad)
+                      + b * table.d_pad * 4 + b * e * 4 + b * e * m0 * 8)
+            flops = b * e * m0 * table.d_pad * HOP_OPS[tier]
+            res.update(ms=ms, plain_ms=pms, library_ms=None, **bound(nbytes, flops))
+            gb = b * e * m0 * HOP_ROW_BYTES[tier](table.d_pad) / 1e9
+            msg += (f", kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s of blocks read), "
+                    f"plain {pms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+                    f"({res['bound_by']}, {blocks} distinct blocks)")
         log(msg)
         return res
 
-    # 16384 node blocks of 8 KB: 134 MB, past the 50 MB L2 like the real table
-    hop = [
-        hop_case(1024, 2, 32, 128, "l2", 16384, True),
-        hop_case(1024, 2, 32, 128, "ip", 16384, False),
-        hop_case(1024, 1, 16, 128, "l2", 4096, True),
-        hop_case(1024, 2, 32, 96, "l2", 16384, False),
-        hop_case(8192, 2, 32, 128, "l2", 16384, True),
-    ]
-    out["hop"] = {"max_abs_err": max(h["err"] for h in hop),
-                  "ms": hop[0]["ms"], "plain_ms": hop[0]["plain_ms"]}
+    # 16384 node blocks: 134 MB (bf16), 71 MB (int8), 38 MB (int4) at
+    # m0=32, d=128, past the 50 MB L2 like the real tables
+    for tier in ("bf16", "int8", "int4"):
+        cases = [
+            hop_case(tier, 1024, 2, 32, 128, "l2", 16384, True),
+            hop_case(tier, 1024, 2, 32, 128, "ip", 16384, False),
+            hop_case(tier, 1024, 2, 32, 96, "l2", 16384, False),
+            hop_case(tier, 8192, 2, 32, 128, "l2", 16384, True),
+        ]
+        if tier == "bf16":
+            cases.append(hop_case(tier, 1024, 1, 16, 128, "l2", 4096, True))
+        out[f"hop_{tier}"] = dict(cases[0], max_abs_err=max(c["err"] for c in cases),
+                                  b8192_ms=cases[3]["ms"], b8192_plain_ms=cases[3]["plain_ms"],
+                                  b8192_bound_ms=cases[3]["bound_ms"])
 
-    def gather_case(b, kk, d, space, rows, timed):
+    def gather_case(dtype, b, kk, d, space, rows, timed):
         table = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(dev)
+        table = table.to(dtype)
         q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
         ids = torch.from_numpy(rng.integers(0, rows, size=(b, kk)).astype(np.int32)).to(dev)
         dk = gk.gather_dist_rows(q, table, ids, space)
         dp = gk.gather_dist_rows_plain(q, table, ids, space)
         torch.cuda.synchronize()
-        # the norm-expansion form cancels: atol scales with |q|^2 + |x|^2
-        scale = (q * q).sum(-1, keepdim=True) + (table * table).sum(-1)[ids.long()]
-        bad = (dk - dp).abs() > 1e-5 * dp.abs() + 1e-5 * scale
+        tag = f"gather {str(dtype)[6:]} B={b} K={kk} d={d} {space}"
+        if dtype == torch.float32:
+            # the norm-expansion form cancels: atol scales with |q|^2 + |x|^2
+            scale = (q * q).sum(-1, keepdim=True) + (table * table).sum(-1)[ids.long()]
+            bad = (dk - dp).abs() > 1e-5 * dp.abs() + 1e-5 * scale
+        else:  # direct difference
+            bad = ~torch.isclose(dk, dp, rtol=1e-5, atol=1e-4)
         if bool(bad.any()):
-            fail(f"gather dists differ at B={b} K={kk} d={d} {space}")
+            fail(f"{tag}: dists differ")
         err = float((dk - dp).abs().max())
-        msg = f"[phase1] gather B={b} K={kk} d={d} {space}: ok, max_abs_err {err:.3e}"
+        msg = f"[phase1] {tag}: ok, max_abs_err {err:.3e}"
         res = {"err": err}
         if timed:
             ms, pms = timed_pair(lambda: gk.gather_dist_rows(q, table, ids, space),
                                  lambda: gk.gather_dist_rows_plain(q, table, ids, space))
-            gb = b * kk * d * 4 / 1e9
-            msg += (f", kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s), "
-                    f"plain {pms:.4f} ms")
-            res.update(ms=ms, plain_ms=pms)
+            esz = table.element_size()
+            nbytes = (int(torch.unique(ids).numel()) * d * esz + b * d * 4
+                      + b * kk * 4 + b * kk * 4)
+            flops = b * kk * d * (4 if dtype == torch.float32 else 3)
+            res.update(ms=ms, plain_ms=pms, library_ms=None, **bound(nbytes, flops))
+            gb = b * kk * d * esz / 1e9
+            msg += (f", kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s of rows read), "
+                    f"plain {pms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
         log(msg)
         return res
 
-    gat = [
-        gather_case(1024, 40, 128, "l2", 200_000, True),
-        gather_case(1024, 40, 128, "ip", 200_000, False),
-    ]
-    out["gather"] = {"max_abs_err": max(g["err"] for g in gat),
-                     "ms": gat[0]["ms"], "plain_ms": gat[0]["plain_ms"]}
+    for name, dtype in (("gather_f32", torch.float32), ("gather_bf16", torch.bfloat16)):
+        cases = [
+            gather_case(dtype, 1024, 40, 128, "l2", 200_000, True),
+            gather_case(dtype, 1024, 40, 128, "ip", 200_000, False),
+        ]
+        out[name] = dict(cases[0], max_abs_err=max(c["err"] for c in cases))
     return out
 
 
@@ -186,11 +241,43 @@ def recall(got: np.ndarray, gt: np.ndarray) -> float:
     return float(np.mean([len(set(got[i]) & set(gt[i])) / K for i in range(len(gt))]))
 
 
-def phase2(dev) -> dict:
+def run_mode(idx, name, qs, reps, launches, **kw):
+    """Search `qs` `reps` times with the kernels' counts set to 0 just before
+    and read just after; adds the counts to `launches`. Fails if a plain
+    version ran on a CUDA tensor or the results are malformed."""
+    import torch
+
+    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
+
+    idx.search(qs[:16], **kw)  # warm-up (allocator, kernel load)
+    torch.cuda.synchronize()
+    COUNTS.reset()
+    times = []
+    for _ in range(reps):
+        t = time.time()
+        d, lab = idx.search(qs, **kw)
+        times.append(time.time() - t)
+    counts = {f: getattr(COUNTS, f) for f in launches}
+    if COUNTS.plain_on_cuda:
+        fail(f"mode {name}: a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
+    for f, c in counts.items():
+        launches[f] += c
+    if d.shape != (len(qs), K) or not np.isfinite(d).all() or (lab < 0).any():
+        fail(f"mode {name}: malformed results")
+    qps = len(qs) / float(np.median(times))
+    return d, lab, qps, counts
+
+
+def need_launch(name, counts, *kernels):
+    for kname in kernels:
+        if counts[kname] == 0:
+            fail(f"mode {name}: {kname} was never launched")
+
+
+def phase2(dev, launches) -> dict:
     import torch
 
     from hnsw_tpu_torch import BruteforceIndex, HNSWIndex, L2Space, SearchParams
-    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
 
     rng = np.random.default_rng(SEED)
     x = make_dataset(N, DIM, rng)
@@ -211,79 +298,213 @@ def phase2(dev) -> dict:
     st = idx._sync_device()
     torch.cuda.synchronize()
     log(f"[phase2] device sync: {time.time() - t0:.1f}s, n_pad {st.graph.n_pad}, "
-        f"unified table {st.unified.nbytes / 1e9:.3f} GB, "
+        f"{st.tier} table {st.unified.nbytes / 1e9:.3f} GB, "
         f"{len(st.upper_tables or ())} upper tables, max_level {st.graph.max_level}")
-
-    launches = {"hop_dist_unified": 0, "gather_dist_rows": 0}
-
-    def run_mode(name, qs, reps, **kw):
-        idx.search(qs[:16], **kw)  # warm-up (allocator, kernel load)
-        torch.cuda.synchronize()
-        COUNTS.reset()
-        times = []
-        for _ in range(reps):
-            t = time.time()
-            d, lab = idx.search(qs, **kw)
-            times.append(time.time() - t)
-        counts = (COUNTS.hop_dist_unified, COUNTS.gather_dist_rows, COUNTS.plain_on_cuda)
-        launches["hop_dist_unified"] += counts[0]
-        launches["gather_dist_rows"] += counts[1]
-        if counts[2]:
-            fail(f"mode {name}: a plain version ran on CUDA tensors {counts[2]} times")
-        if counts[0] == 0:
-            fail(f"mode {name}: the hop kernel was never launched")
-        if d.shape != (len(qs), K) or not np.isfinite(d).all() or (lab < 0).any():
-            fail(f"mode {name}: malformed results")
-        qps = len(qs) / float(np.median(times))
-        return d, lab, qps, counts
+    if st.tier != "unified":
+        fail(f"phase 2 serves the bf16 tier, got {st.tier}")
+    del st
 
     # (a) speed mode, bench.py:233-261
     pa = SearchParams(k=K, ef=160, expand=2, stop_frontier=1.15, max_iters=14, entry_seeds=4)
-    _, lab_a, qps_a, c_a = run_mode("a", q, 5, params=pa)
+    _, lab_a, qps_a, c_a = run_mode(idx, "a", q, 5, launches, params=pa)
+    need_launch("a", c_a, "hop_dist_unified")
     rec_a = recall(lab_a, gt)
     log(f"[phase2] (a) speed mode, batch {BATCH}: recall@10 {rec_a:.4f} "
         f"(delta {rec_a - EXPECTED_RECALL:+.4f} from {EXPECTED_RECALL}), "
-        f"{qps_a:.0f} qps, hop launches {c_a[0]}")
+        f"{qps_a:.0f} qps, hop launches {c_a['hop_dist_unified']}")
     if rec_a < 0.95:
         fail(f"(a) recall {rec_a} < 0.95")
 
     # (b) default descent at ef=200
-    _, lab_b, qps_b, c_b = run_mode("b", q[:1024], 2, k=K, ef=200)
+    _, lab_b, qps_b, c_b = run_mode(idx, "b", q[:1024], 2, launches, k=K, ef=200)
+    need_launch("b", c_b, "hop_dist_unified")
     rec_b = recall(lab_b, gt[:1024])
     rec_b512 = recall(lab_b[:512], gt[:512])
     _, lab_cpu, _ = idx.search_cpu(q[:512], k=K, ef=200)
     rec_cpu = recall(lab_cpu, gt[:512])
     log(f"[phase2] (b) default descent ef=200, 1024 queries: recall@10 {rec_b:.4f}, "
-        f"{qps_b:.0f} qps, hop launches {c_b[0]}; first 512: device {rec_b512:.4f} "
-        f"vs native CPU engine {rec_cpu:.4f}")
+        f"{qps_b:.0f} qps, hop launches {c_b['hop_dist_unified']}; first 512: device "
+        f"{rec_b512:.4f} vs native CPU engine {rec_cpu:.4f}")
     if abs(rec_b512 - rec_cpu) > 0.01:
         fail(f"(b) recall {rec_b512} not within 0.01 of the CPU engine's {rec_cpu}")
 
     # (c) high-recall mode with exact rescore
     pc = SearchParams(k=K, ef=200, entry_seeds=4, stop_frontier=1.0, frontier_rank=200,
                       rescore=40)
-    d_c, lab_c, qps_c, c_c = run_mode("c", q[:1024], 2, params=pc)
+    d_c, lab_c, qps_c, c_c = run_mode(idx, "c", q[:1024], 2, launches, params=pc)
+    need_launch("c", c_c, "hop_dist_unified", "gather_dist_rows")
     rec_c = recall(lab_c, gt[:1024])
     log(f"[phase2] (c) high-recall + rescore 40, 1024 queries: recall@10 {rec_c:.4f}, "
-        f"{qps_c:.0f} qps, hop launches {c_c[0]}, gather launches {c_c[1]}")
+        f"{qps_c:.0f} qps, hop launches {c_c['hop_dist_unified']}, "
+        f"gather launches {c_c['gather_dist_rows']}")
     if rec_c < 0.99:
         fail(f"(c) recall {rec_c} < 0.99")
-    if c_c[1] == 0:
-        fail("(c): the gather kernel was never launched")
-    qsq = (q[:1024].astype(np.float64) ** 2).sum(-1)
-    xsq = (x.astype(np.float64) ** 2).sum(-1)
-    worst = 0.0
-    for i in range(1024):
-        ref = dict(zip(gt[i].tolist(), gt_d[i].tolist()))
-        for lab, dv in zip(lab_c[i].tolist(), d_c[i].tolist()):
-            if lab in ref:
-                tol = 1e-5 * abs(ref[lab]) + 1e-5 * (qsq[i] + xsq[lab])
-                worst = max(worst, abs(dv - ref[lab]) / tol)
+    worst = oracle_error(d_c, lab_c, q[:1024], x, gt[:1024], gt_d[:1024])
     log(f"[phase2] (c) distances vs oracle: worst error {worst:.3f} of tolerance")
     if worst > 1.0:
         fail("(c) distances disagree with the oracle's")
-    return {"launches": launches, "recall": {"a": rec_a, "b": rec_b, "c": rec_c},
+    return {"recall": {"a": rec_a, "b": rec_b, "c": rec_c},
             "qps": {"a": qps_a, "b": qps_b, "c": qps_c}}
+
+
+def oracle_error(d, lab, q, x, gt, gt_d) -> float:
+    """Worst |returned - oracle| distance over the oracle's tolerance
+    1e-5*|ref| + 1e-5*(|q|^2 + |x|^2), for returned labels the oracle also
+    returned (labels are row numbers)."""
+    qsq = (q.astype(np.float64) ** 2).sum(-1)
+    xsq = (x.astype(np.float64) ** 2).sum(-1)
+    worst = 0.0
+    for i in range(len(q)):
+        ref = dict(zip(gt[i].tolist(), gt_d[i].tolist()))
+        for lab_i, dv in zip(lab[i].tolist(), d[i].tolist()):
+            if lab_i in ref:
+                tol = 1e-5 * abs(ref[lab_i]) + 1e-5 * (qsq[i] + xsq[lab_i])
+                worst = max(worst, abs(dv - ref[lab_i]) / tol)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the serving tiers below bf16.
+# ---------------------------------------------------------------------------
+
+
+def u8_dataset(n, nq, dim, rng):
+    """bin/sweep_u8.py's SIFT-like uint8 data (copied, not imported)."""
+    centers = rng.normal(size=(4096, dim))
+    xf = centers[rng.integers(0, 4096, n)] + 0.5 * rng.normal(size=(n, dim))
+    x = np.clip(np.rint(xf * 36.0 + 128.0), 0, 255).astype(np.uint8)
+    qf = x[rng.integers(0, n, nq)].astype(np.float64) + 1.8 * rng.normal(size=(nq, dim))
+    return x, np.clip(np.rint(qf), 0, 255).astype(np.uint8)
+
+
+def tier_state(idx, budget, tier):
+    """Rebuild the index's device tables under `budget` (None: keep the
+    tables of the last sync) and check the tier."""
+    import torch
+
+    t0 = time.time()
+    st = idx._sync_device() if budget is None else idx.rebuild_device_tables(budget)
+    torch.cuda.synchronize()
+    if st.tier != tier:
+        fail(f"budget {budget} served tier {st.tier}, expected {tier}")
+    side = sum(t.nbytes for t in (st.codes, st.scales) if t is not None)
+    nbytes = st.unified.nbytes + side
+    cap = "the default budget" if budget is None else f"a budget of {budget / 1e9:.3f} GB"
+    log(f"[phase3] {tier} tables under {cap}: "
+        f"{st.unified.nbytes / 1e9:.3f} GB + {side / 1e9:.3f} GB side tables, "
+        f"vectors {str(st.vectors.dtype)[6:]}, sync {time.time() - t0:.1f}s")
+    return st, nbytes
+
+
+def phase3(dev, launches) -> dict:
+    import torch
+
+    from hnsw_tpu_torch import BruteforceIndex, HNSWIndex, L2Space, SearchParams
+    from hnsw_tpu_torch.ops.gather_kernels import tier_bytes
+
+    out = {}
+    rng = np.random.default_rng(7)
+    x = make_dataset(N_TIERS, DIM, rng, n_clusters=4096)
+    q = x[rng.integers(0, N_TIERS, NQ_TIERS)] + 0.05 * rng.normal(
+        size=(NQ_TIERS, DIM)).astype(np.float32)
+    t0 = time.time()
+    idx = HNSWIndex("l2", dim=DIM, m=M, ef_construction=EF_C, device=dev)
+    idx.add_items(x)
+    out["build_s"] = time.time() - t0
+    log(f"[phase3] host build N={N_TIERS} d={DIM} M={M} efC={EF_C}: {out['build_s']:.1f}s")
+    oracle = BruteforceIndex(L2Space(DIM), device=dev)
+    oracle.add_items(x, np.arange(N_TIERS))
+    gt_d, gt = oracle.search_knn(q, K)
+    del oracle
+    torch.cuda.empty_cache()
+
+    st = idx._sync_device()
+    need = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], DIM)
+    log(f"[phase3] n_pad {st.graph.n_pad}, tier bytes (port layouts): "
+        + ", ".join(f"{t} {b / 1e9:.3f} GB" for t, b in need.items()))
+    del st
+    params = SearchParams(k=K, ef=200, entry_seeds=4)
+
+    def mode(name, tier, budget, qs, reps=2, **kw):
+        st, nbytes = tier_state(idx, budget, tier)
+        del st
+        d, lab, qps, counts = run_mode(idx, name, qs, reps, launches, **kw)
+        log(f"[phase3] ({name}) {tier}: {qps:.0f} qps, launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+        out[name] = {"tier": tier, "qps": qps, "table_bytes": nbytes}
+        return d, lab, counts
+
+    # the bf16 tier (the ladder's pick on an 80 GB card) on the same graph
+    # and params, for information
+    _, lab_bf, _ = mode("bf16", "unified", None, q, params=params)
+    out["bf16"]["recall"] = recall(lab_bf, gt)
+    log(f"[phase3] (bf16) recall@10 {out['bf16']['recall']:.4f}")
+
+    # (d) int8 tier, f32 storage, auto rescore of 4k
+    d_d, lab_d, c_d = mode("d", "unified8", (need["unified8"] + need["unified"]) // 2, q,
+                           params=params)
+    need_launch("d", c_d, "hop_dist_unified8", "gather_dist_rows")
+    out["d"]["recall"] = rec = recall(lab_d, gt)
+    worst = oracle_error(d_d, lab_d, q, x, gt, gt_d)
+    log(f"[phase3] (d) int8 + auto rescore: recall@10 {rec:.4f} (bf16 tier "
+        f"{out['bf16']['recall']:.4f}), distances vs oracle: worst {worst:.3f} of tolerance")
+    if rec < 0.95:
+        fail(f"(d) recall {rec} < 0.95")
+    if worst > 1.0:
+        fail("(d) distances disagree with the oracle's")
+
+    # (e) int4 tier with bf16 storage: res/sweep_4m.json's serving config
+    idx.space = L2Space(DIM, storage_dtype=torch.bfloat16)
+    d_e, lab_e, c_e = mode("e", "unified4", (need["unified4"] + need["unified8"]) // 2, q,
+                           params=params)
+    need_launch("e", c_e, "hop_dist_unified4", "gather_dist_bf16")
+    xb = idx._device.vectors
+    if xb.dtype != torch.bfloat16:
+        fail(f"(e) vectors stored as {xb.dtype}")
+    rows = xb[torch.from_numpy(lab_e).to(dev).long()].double().cpu().numpy()
+    ref = ((rows - q.astype(np.float64)[:, None, :]) ** 2).sum(-1)
+    out["e"]["recall"] = rec = recall(lab_e, gt)
+    err = float(np.max(np.abs(d_e - ref) / (1e-4 + 1e-5 * np.abs(ref))))
+    log(f"[phase3] (e) int4 + bf16 storage + auto rescore: recall@10 {rec:.4f}, "
+        f"distances vs float64 of the bf16 vectors: worst {err:.3f} of tolerance")
+    if rec < 0.90:
+        fail(f"(e) recall {rec} < 0.90")
+    if err > 1.0:
+        fail("(e) distances disagree with float64 distances to the bf16 vectors")
+    del idx, xb
+    torch.cuda.empty_cache()
+
+    # (f) l2u8 on lossless int8 codes, no rescore
+    xu, qu = u8_dataset(N_U8, NQ_TIERS, DIM, np.random.default_rng(7))
+    t0 = time.time()
+    idx = HNSWIndex("l2u8", dim=DIM, m=M, ef_construction=EF_C, device=dev)
+    idx.add_items(xu)
+    log(f"[phase3] host build l2u8 N={N_U8}: {time.time() - t0:.1f}s")
+    st = idx._sync_device()
+    need_u8 = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], DIM)
+    del st
+    pf = SearchParams(k=K, ef=200, entry_seeds=4, stop_frontier=1.15)
+    d_f, lab_f, c_f = mode("f", "unified8", (need_u8["unified8"] + need_u8["unified"]) // 2,
+                           qu, params=pf)
+    need_launch("f", c_f, "hop_dist_unified8")
+    if c_f["gather_dist_rows"] or c_f["gather_dist_bf16"]:
+        fail("(f) exact codes need no rescore, but a gather kernel ran")
+    xi, qi = xu.astype(np.int64), qu.astype(np.int64)
+    exact = ((xi[lab_f] - qi[:, None, :]) ** 2).sum(-1)
+    if not np.array_equal(d_f.astype(np.float64), exact.astype(np.float64)):
+        fail("(f) distances differ from the int64 distances")
+    # the 10th exact distance per query, in float64 on the card (exact for
+    # integers this small), for a recall that counts ties
+    xg = torch.from_numpy(xu).to(dev).double()
+    qg = torch.from_numpy(qu).to(dev).double()
+    dd = (qg * qg).sum(-1)[:, None] + (xg * xg).sum(-1)[None, :] - 2.0 * qg @ xg.T
+    kth = torch.topk(dd, K, dim=-1, largest=False).values[:, -1].cpu().numpy()
+    out["f"]["recall"] = rec = float(np.mean(exact <= kth[:, None]))
+    log(f"[phase3] (f) l2u8 exact int8: distances equal int64 numpy, tie-aware "
+        f"recall@10 {rec:.4f}")
+    if rec < 0.95:
+        fail(f"(f) tie-aware recall {rec} < 0.95")
+    return out
 
 
 def main() -> int:
@@ -301,24 +522,32 @@ def main() -> int:
     log(f"[phase0] torch {torch.__version__} cuda {torch.version.cuda}, device {name}")
     log(f"[phase0] nvidia-smi: {smi}")
 
+    t_start = time.time()
     k1 = phase1(dev)
-    p2 = phase2(dev)
-    log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"],
-                                "device": smi}}))
-    log(json.dumps({"kernels": [
-        {"name": "hop_dist_unified", "route": "cuda",
-         "source": "hnsw_tpu_torch/csrc/hop_dist_unified.cu",
-         "replaces": "hnsw_tpu/ops/pallas_gather.py:795",
-         "launches": p2["launches"]["hop_dist_unified"],
-         "max_abs_err": k1["hop"]["max_abs_err"],
-         "ms": k1["hop"]["ms"], "plain_ms": k1["hop"]["plain_ms"]},
-        {"name": "gather_dist_rows", "route": "cuda",
-         "source": "hnsw_tpu_torch/csrc/gather_dist.cu",
-         "replaces": "hnsw_tpu/ops/pallas_gather.py:1051",
-         "launches": p2["launches"]["gather_dist_rows"],
-         "max_abs_err": k1["gather"]["max_abs_err"],
-         "ms": k1["gather"]["ms"], "plain_ms": k1["gather"]["plain_ms"]},
-    ]}))
+    launches = {"hop_dist_unified": 0, "hop_dist_unified8": 0, "hop_dist_unified4": 0,
+                "gather_dist_rows": 0, "gather_dist_bf16": 0}
+    p2 = phase2(dev, launches)
+    p3 = phase3(dev, launches)
+    log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"], "tiers": p3,
+                                "seconds": time.time() - t_start, "device": smi}}))
+    rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
+        ("hop_dist_unified", "hop_bf16", "hop_dist_unified.cu", "pallas_gather.py:795"),
+        ("gather_dist_rows", "gather_f32", "gather_dist.cu", "pallas_gather.py:1051"),
+        ("hop_dist_unified8", "hop_int8", "hop_dist_quant.cu", "pallas_gather.py:795"),
+        ("hop_dist_unified4", "hop_int4", "hop_dist_quant.cu", "pallas_gather.py:795"),
+        ("gather_dist_bf16", "gather_bf16", "gather_dist_bf16.cu", "pallas_gather.py:1026"),
+    ]
+    kernels = []
+    for counter, key, src, tpu in rows:
+        r = k1[key]
+        kernels.append({
+            "name": counter, "route": "cuda", "source": f"hnsw_tpu_torch/csrc/{src}",
+            "replaces": f"hnsw_tpu/ops/{tpu}", "launches": launches[counter],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -7,15 +7,23 @@ The JAX package ``hnsw_tpu`` stays the reference; this package imports
 - ``native``: the reference's C++ builder, compiled by path and bound with
   ctypes;
 - ``io``: the reference's .npz checkpoint format;
-- ``ops``: distances, top-k, the unified node-block tables with their two
-  hand-written CUDA kernels (``ops.gather_kernels``, sources in ``csrc/``),
-  and the batched beam traversal;
+- ``ops``: distances, top-k, the unified node-block tables of the bf16,
+  int8 and int4 tiers with their hand-written CUDA kernels
+  (``ops.gather_kernels``, sources in ``csrc/``), and the batched beam
+  traversal;
 - ``models``: the exact bruteforce oracle and HNSWIndex;
 - ``convert``: numpy-only conversion of the JAX package's state.
 """
 
 from hnsw_tpu_torch.core.graph import HNSWGraph, graph_device_arrays
-from hnsw_tpu_torch.core.spaces import CosineSpace, IPSpace, L2Space, Space, get_space
+from hnsw_tpu_torch.core.spaces import (
+    CosineSpace,
+    IPSpace,
+    L2Space,
+    L2SpaceU8,
+    Space,
+    get_space,
+)
 from hnsw_tpu_torch.models.bruteforce import BruteforceIndex
 from hnsw_tpu_torch.models.hnsw import HNSWIndex, SearchParams
 
@@ -24,6 +32,7 @@ __all__ = [
     "graph_device_arrays",
     "Space",
     "L2Space",
+    "L2SpaceU8",
     "IPSpace",
     "CosineSpace",
     "get_space",

@@ -4,9 +4,10 @@
 - `index_from_parts` builds the port's index from what the JAX index
   exports: ``export_graph()``, ``export_vectors()``, ``export_deleted()``
   of its builder and its checkpoint meta dict.
-- `unified_from_jax_rows` decodes a JAX unified node-block table
-  (``[R*s_data, 128]`` int32, hnsw_tpu/ops/pallas_gather.py:298-336) into
-  the port's two-tensor layout.
+- `unified_from_jax_rows`, `unified8_from_jax_rows` and
+  `unified4_from_jax_rows` decode the JAX unified node-block tables
+  (``[R*s_data, 128]`` int32: bf16, int8 and int4 rows of
+  hnsw_tpu/ops/pallas_gather.py) into the port's layouts.
 """
 
 from __future__ import annotations
@@ -16,7 +17,12 @@ import torch
 
 from hnsw_tpu_torch.core.graph import HNSWGraph, round_up
 from hnsw_tpu_torch.models.hnsw import HNSWIndex
-from hnsw_tpu_torch.ops.gather_kernels import UnifiedTable
+from hnsw_tpu_torch.ops.gather_kernels import (
+    Unified4Table,
+    Unified8Table,
+    UnifiedTable,
+    pack_int4,
+)
 
 
 def index_from_parts(
@@ -53,3 +59,46 @@ def unified_from_jax_rows(rows_int32: np.ndarray, m0: int, d: int) -> UnifiedTab
     vecs = torch.from_numpy(vec_bits.view(np.int16)).view(torch.bfloat16)
     payload = torch.from_numpy(np.ascontiguousarray(rows[:, sv, :m0]))
     return UnifiedTable(vecs, payload)
+
+
+def _quant_table(rows: np.ndarray, sv: int, m0: int, d: int, codes_flat):
+    """Shared tail of the int8 and int4 decoders: `codes_flat(words)` maps
+    the [R, sv, 128] code words to [R, m0*d_pad_j] int8 codes; the last
+    sublane holds the ids in lanes 0..m0-1 and the f32 scale bits in lanes
+    m0..2*m0-1. Returns (codes [R, m0, d_pad] int8, scales, payload)."""
+    rows = np.asarray(rows, dtype=np.int32).reshape(-1, sv + 1, 128)
+    r = rows.shape[0]
+    flat = codes_flat(rows[:, :sv, :]).reshape(r, m0, -1)
+    codes = np.zeros((r, m0, round_up(d, 8)), np.int8)
+    codes[:, :, :d] = flat[:, :, :d]
+    scales = np.ascontiguousarray(rows[:, sv, m0 : 2 * m0]).view(np.float32)
+    payload = np.ascontiguousarray(rows[:, sv, :m0])
+    return torch.from_numpy(codes), torch.from_numpy(scales), torch.from_numpy(payload)
+
+
+def unified8_from_jax_rows(rows_int32: np.ndarray, m0: int, d: int) -> Unified8Table:
+    """Decode a JAX int8 unified table (pack_unified8_rows): a block is
+    sv8 = m0*d_pad_j/512 code sublanes plus the id and scale sublane, and
+    byte t of the int32 at (sublane s, lane l) is flat code s*512 + t*128 + l."""
+    sv8 = m0 * round_up(d, 128) // 512
+
+    def codes_flat(words):  # [R, sv8, 128] int32 -> bytes [R, sv8, 128, 4]
+        b = np.ascontiguousarray(words).view(np.int8).reshape(*words.shape, 4)
+        return b.transpose(0, 1, 3, 2)
+
+    return Unified8Table(*_quant_table(rows_int32, sv8, m0, d, codes_flat))
+
+
+def unified4_from_jax_rows(rows_int32: np.ndarray, m0: int, d: int) -> Unified4Table:
+    """Decode a JAX int4 unified table (pack_unified4_rows): nibble j of the
+    int32 at (sublane i, lane l) of the sv4 = m0*d_pad_j/1024 code sublanes
+    is flat code (j*sv4 + i)*128 + l, sign-extended; the codes are repacked
+    in the port's nibble order."""
+    sv4 = m0 * round_up(d, 128) // 1024
+
+    def codes_flat(words):  # -> [R, 8, sv4, 128]
+        nib = [(words << (28 - 4 * j)) >> 28 for j in range(8)]
+        return np.stack(nib, axis=1).astype(np.int8)
+
+    codes, scales, payload = _quant_table(rows_int32, sv4, m0, d, codes_flat)
+    return Unified4Table(pack_int4(codes), scales, payload)

@@ -2,7 +2,7 @@
 
 A Space is a thin descriptor: the batched kernels in hnsw_tpu_torch.ops are
 dispatched by the space's name, and host-side preprocessing (cosine's
-normalization) runs at insert and query time.
+normalization, l2u8's shift) runs at insert and query time.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ class Space:
 
     @property
     def exact_i8(self) -> bool:
-        """True for the lossless int8 tier (the l2u8 space), not yet ported."""
+        """True when stored values are integers in [-128, 127]: the int8
+        tier's codes are then lossless (scale 1) and need no rescore."""
         return False
 
     @property
@@ -50,6 +51,39 @@ class L2Space(Space):
 
     def __init__(self, dim: int, storage_dtype=torch.float32):
         super().__init__(name="l2", dim=dim, storage_dtype=storage_dtype)
+
+
+class L2SpaceU8(Space):
+    """Exact uint8 squared-L2 space (the reference's integer L2SpaceI).
+
+    Values are shifted by -128 at insert and query time, so stored vectors
+    are integers in [-128, 127]: (a-128)-(b-128) == a-b leaves every
+    squared-L2 distance unchanged, and with d <= 128 every partial sum stays
+    below 2^24, exact in f32. The int8 tier's scale-1 codes are then
+    lossless, and every device path returns the exact integer distance."""
+
+    def __init__(self, dim: int, storage_dtype=torch.float32):
+        super().__init__(name="l2", dim=dim, storage_dtype=storage_dtype)
+
+    @property
+    def persist_name(self) -> str:
+        return "l2u8"
+
+    @property
+    def exact_i8(self) -> bool:
+        return True
+
+    def preprocess(self, x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x)
+        if x.dtype != np.uint8:
+            xi = np.rint(np.asarray(x, dtype=np.float32))
+            if np.any(xi < 0) or np.any(xi > 255):
+                raise ValueError("l2u8 space requires values in [0, 255]")
+            x = xi
+        return np.asarray(x, dtype=np.float32).reshape(-1, self.dim) - 128.0
+
+    def decode(self, x: np.ndarray) -> np.ndarray:
+        return np.asarray(x, dtype=np.float32) + 128.0
 
 
 class IPSpace(Space):
@@ -84,10 +118,7 @@ def get_space(name: str, dim: int, storage_dtype=torch.float32) -> Space:
     if name == "cosine":
         return CosineSpace(dim, storage_dtype)
     if name == "l2u8":
-        raise NotImplementedError(
-            "the l2u8 space needs the lossless int8 unified tier, which is "
-            "not ported yet (ROADMAP.md queue 1: int8 and int4 tiers)"
-        )
+        return L2SpaceU8(dim, storage_dtype)
     raise ValueError(
         f"unknown space {name!r} (expected 'l2', 'l2u8', 'ip' or 'cosine')"
     )

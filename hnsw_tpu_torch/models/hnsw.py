@@ -2,9 +2,9 @@
 traversal (counterpart of hnsw_tpu/models/hnsw.py).
 
 Construction runs on the native C++ engine; a search syncs the graph to the
-device (padded-CSR tensors, the vector table and the bf16 unified node-block
-tables) and runs the batched beam there. This slice serves the bf16 unified
-tier only, and a dirty index resyncs in full.
+device (padded-CSR tensors, the vector table in the space's storage dtype,
+and the unified node-block tables of the largest tier that fits: bf16, int8
+or int4) and runs the batched beam there. A dirty index resyncs in full.
 """
 
 from __future__ import annotations
@@ -23,13 +23,7 @@ from hnsw_tpu_torch.core.graph import (
 from hnsw_tpu_torch.core.spaces import Space, get_space
 from hnsw_tpu_torch.models.bruteforce import resolve_device
 from hnsw_tpu_torch.native.hnsw_builder import NativeHNSWBuilder
-from hnsw_tpu_torch.ops.gather_kernels import (
-    gather_dist_rows,
-    make_unified_table_chunked,
-    make_upper_tables,
-    unified_table_bytes,
-    upper_level_sizes_u,
-)
+from hnsw_tpu_torch.ops.gather_kernels import build_inline_tables, gather_dist_rows
 from hnsw_tpu_torch.ops.topk import bruteforce_topk, topk_smallest
 from hnsw_tpu_torch.ops.traversal import SearchResults, search_batch
 
@@ -40,13 +34,22 @@ UNIFIED_FREE_SHARE = 0.8
 
 def _rescore_topk(q, x, ids, dists, *, k, m, space):
     """Re-rank the first m beam candidates with exact distances from the
-    f32 vector table (one gather kernel launch) and return the best k."""
+    vector table (one gather kernel launch: f32 or bf16 table) and return
+    the best k."""
     idm = ids[:, :m]
     safe = torch.clamp(idm, 0, x.shape[0] - 1)
     d_ex = gather_dist_rows(q, x, safe, space)
     d_ex = torch.where(torch.isfinite(dists[:, :m]), d_ex, torch.inf)
     dk, pos = topk_smallest(d_ex, k)
     return dk, idm.gather(-1, pos)
+
+
+def auto_rescore(tier: str | None, exact_i8: bool, k: int) -> int:
+    """The rescore depth when SearchParams.rescore is None: 4*k on the lossy
+    tiers (int4, and int8 unless the space's codes are l2u8's lossless
+    scale-1 codes), else 0."""
+    lossy = tier == "unified4" or (tier == "unified8" and not exact_i8)
+    return 4 * k if lossy else 0
 
 
 def landmark_arrays(dg, x, sq, pool_extra: int = 0):
@@ -88,8 +91,8 @@ class SearchParams:
     stop_patience: int = 0  # >0: stop after this many non-improving steps
     stop_frontier: float = 0.0  # >0: frontier cut multiplier
     frontier_rank: int = 0  # rank the frontier compares against (0 => k)
-    # exact re-rank of the top `rescore` candidates (None = auto: 0 on the
-    # lossless bf16 tier this slice serves)
+    # exact re-rank of the top `rescore` candidates (None = auto: 4*k on the
+    # lossy int4 and int8 tiers, 0 on bf16 and on l2u8's exact int8 codes)
     rescore: int | None = None
     stop_fn: object = None  # StopView -> [B] bool custom stop condition
     entry_seeds: int = 0  # >0: landmark-seeded entry instead of the descent
@@ -99,12 +102,15 @@ class SearchParams:
 @dataclasses.dataclass
 class _DeviceState:
     graph: object  # DeviceGraph
-    vectors: torch.Tensor  # [N_pad, D] f32
-    sq_norms: torch.Tensor | None  # [N_pad] (l2)
+    vectors: torch.Tensor  # [N_pad, D] in space.storage_dtype
+    sq_norms: torch.Tensor | None  # [N_pad] f32 of the stored values (l2)
     deleted: np.ndarray  # [N_pad] bool, host
     labels: np.ndarray  # [N_pad] int64, host (-1 = padding)
-    unified: object  # UnifiedTable | None
-    upper_tables: tuple | None
+    tier: str | None  # "unified" | "unified8" | "unified4" | None (gathers)
+    unified: object  # UnifiedTable | Unified8Table | Unified4Table | None
+    upper_tables: tuple | None  # bf16 descent tables on every tier
+    codes: torch.Tensor | None  # int8/int4 side tables, unless
+    scales: torch.Tensor | None  # keep_delta_tables is False
 
 
 class HNSWIndex:
@@ -142,15 +148,18 @@ class HNSWIndex:
         # device arrays are padded past the current size by this fraction
         self.growth_headroom = growth_headroom
         self.device = resolve_device(device)
-        # the bf16 unified node-block tier (one contiguous block read per
+        # the unified node-block tiers (one contiguous block read per
         # expansion); False serves through plain row gathers. Unified rows
         # carry up to 128 neighbors.
         if inline_neighbors is None:
             inline_neighbors = True
         self.inline_neighbors = bool(inline_neighbors) and 2 * m <= 128
         # None: UNIFIED_FREE_SHARE of the card's free memory (no limit on
-        # the CPU)
+        # the CPU); the ladder picks bf16, else int8, else int4
         self.unified_max_bytes: int | None = None
+        # False drops the int8/int4 codes and scales side tables after the
+        # unified table is built (a serve-only index)
+        self.keep_delta_tables = True
         self._device: _DeviceState | None = None
         self._landmark_cache = None
         self._dirty = True
@@ -249,33 +258,40 @@ class HNSWIndex:
         dg = graph_device_arrays(g, n_pad, device=dev)
         x = torch.from_numpy(
             pad_vectors(self._builder.export_vectors(), n_pad)
-        ).to(dev)
-        sq = (x * x).sum(-1) if self.space.needs_sq_norms else None
-        unified = upper = None
+        ).to(dev, dtype=self.space.storage_dtype)
+        sq = None
+        if self.space.needs_sq_norms:
+            # squared norms of the stored (e.g. bf16-rounded) values, in f32
+            x32 = x.float()
+            sq = (x32 * x32).sum(-1)
+            del x32
+        tier = table = upper = codes = scales = None
         if self.inline_neighbors:
-            budget = self._unified_budget()
-            m0_pad = dg.level0.shape[1]
-            need = unified_table_bytes(n_pad, m0_pad, self.dim)
-            if budget is not None and need > budget:
-                raise MemoryError(
-                    f"the bf16 unified table needs {need} bytes, over the "
-                    f"budget of {budget}: the int8, int4 and split tiers that "
-                    "serve larger indexes are later slices of the port "
-                    "(ROADMAP.md); pass inline_neighbors=False to serve "
-                    "through plain row gathers"
-                )
-            unified = make_unified_table_chunked(x, dg.level0)
-            if dg.max_level > 0:
-                sizes = upper_level_sizes_u(dg.upper_slot, dg.upper.shape[1])
-                upper = make_upper_tables(
-                    x, dg.upper, dg.upper_slot, level_sizes=sizes
-                )
+            tier, table, upper, codes, scales = build_inline_tables(
+                x, dg, self.dim, self._unified_budget(),
+                exact_i8=self.space.exact_i8,
+                keep_delta_tables=self.keep_delta_tables,
+            )
         deleted = np.zeros(n_pad, dtype=bool)
         deleted[:n] = self._builder.export_deleted().astype(bool)
         labels_np = np.full(n_pad, -1, dtype=np.int64)
         labels_np[:n] = g.labels
-        self._device = _DeviceState(dg, x, sq, deleted, labels_np, unified, upper)
+        self._device = _DeviceState(
+            dg, x, sq, deleted, labels_np, tier, table, upper or None, codes, scales
+        )
         self._builder.clear_dirty()
+
+    def rebuild_device_tables(self, unified_max_bytes: int | None = None) -> _DeviceState:
+        """Drop and rebuild every device tensor, optionally with a new table
+        budget, which is how a caller chooses the tier: a budget between two
+        tiers' bytes (ops.gather_kernels.tier_bytes) serves the smaller. The
+        old tables are released first, so peak memory holds one set."""
+        if unified_max_bytes is not None:
+            self.unified_max_bytes = unified_max_bytes
+        self._device = None
+        self._landmark_cache = None  # it holds the old state
+        self._dirty = True
+        return self._sync_device()
 
     def _refresh_deleted(self) -> None:
         """Delete-marks touch no graph or vector state: refresh only the
@@ -338,8 +354,9 @@ class HNSWIndex:
                     ok = ok & allow
             eligible = torch.from_numpy(ok).to(self.device)
 
-        # this slice serves the lossless bf16 tier: no automatic rescore
-        m_res = 0 if params.rescore is None else params.rescore
+        m_res = params.rescore
+        if m_res is None:
+            m_res = auto_rescore(st.tier, self.space.exact_i8, params.k)
         m_res = min(m_res, params.ef)
         # the rescore re-ranks the top m_res beam candidates, so the search
         # must return that many

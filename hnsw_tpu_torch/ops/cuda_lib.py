@@ -80,10 +80,18 @@ def load_kernels() -> ctypes.CDLL:
         so = build_if_stale(LIB_PATH, _sources(), _compile)
         lib = ctypes.CDLL(so)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hop_dist_unified_bf16.argtypes = [P, P, P, P, P, P, I, I, I, I, L, I, P]
-        lib.hop_dist_unified_bf16.restype = I
-        lib.gather_dist_f32.argtypes = [P, P, P, P, I, I, I, L, I, P]
-        lib.gather_dist_f32.restype = I
+        hop = [I, I, I, I, L, I, P]  # B, E, m0, d_pad, R, ip, stream
+        gather = [P, P, P, P, I, I, I, L, I, P]
+        for name, args in (
+            ("hop_dist_unified_bf16", [P] * 6 + hop),
+            ("hop_dist_unified_int8", [P] * 7 + hop),
+            ("hop_dist_unified_int4", [P] * 7 + hop),
+            ("gather_dist_f32", gather),
+            ("gather_dist_bf16", gather),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = I
         _LIB.append(lib)
         return lib
 

@@ -1,18 +1,22 @@
-"""Node-block tables and the two CUDA kernels of the query path
-(counterpart of hnsw_tpu/ops/pallas_gather.py).
+"""Node-block tables and the CUDA kernels of the query path (counterpart of
+hnsw_tpu/ops/pallas_gather.py).
 
-- The unified node-block table: for every node, the bf16 vectors of its m0
-  level-0 neighbors and their ids, so one expansion reads one contiguous
-  block. The TPU packs a block into int32 sublanes (bf16 pairs plus an id
-  sublane); here a table is two tensors, ``vecs [R, m0, d_pad]`` bf16 and
-  ``payload [R, m0]`` int32, holding the same bf16 values in the same
-  neighbor order. d is padded to a multiple of 8 (16-byte rows); zero lanes
-  change neither L2 nor IP. The upper-level descent tables use the same
-  layout with neighbor *slots* as the payload.
+- The unified node-block tables: for every node, its m0 level-0 neighbors'
+  vectors and their ids, so one expansion reads one contiguous block. The
+  TPU packs a block into int32 sublanes; here a table is a few tensors
+  holding the same values in the same neighbor order, with d padded to a
+  multiple of 8 (zero lanes change neither L2 nor IP). Three tiers:
+  ``UnifiedTable`` (bf16 vectors), ``Unified8Table`` (int8 codes and each
+  neighbor's f32 scale) and ``Unified4Table`` (4-bit codes, two per byte).
+  The upper-level descent tables are bf16 on every tier, with neighbor
+  *slots* as the payload.
+- ``build_inline_tables``: the tier ladder (bf16, else int8, else int4).
 - ``hop_dist_unified``: distances from each query to the neighbors of its
-  chosen nodes, read from a unified table (csrc/hop_dist_unified.cu).
-- ``gather_dist_rows``: distances from each query to K rows of an f32
-  vector table, the exact rescore (csrc/gather_dist.cu).
+  chosen nodes, read from a unified table of any tier
+  (csrc/hop_dist_unified.cu, csrc/hop_dist_quant.cu).
+- ``gather_dist_rows``: distances from each query to K rows of the f32 or
+  bf16 vector table, the exact rescore (csrc/gather_dist.cu,
+  csrc/gather_dist_bf16.cu).
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises. ``COUNTS`` records every
@@ -23,6 +27,7 @@ show which path it took.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,12 +41,16 @@ class KernelCounts:
     """Launch counts of the CUDA kernels, and calls of their plain versions
     on CUDA tensors (chip_smoke.py holds the main path to zero of those)."""
 
-    hop_dist_unified: int = 0
-    gather_dist_rows: int = 0
+    hop_dist_unified: int = 0  # bf16 rows
+    hop_dist_unified8: int = 0
+    hop_dist_unified4: int = 0
+    gather_dist_rows: int = 0  # f32 table
+    gather_dist_bf16: int = 0
     plain_on_cuda: int = 0
 
     def reset(self) -> None:
-        self.hop_dist_unified = self.gather_dist_rows = self.plain_on_cuda = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 COUNTS = KernelCounts()
@@ -81,22 +90,89 @@ class UnifiedTable:
         return self.vecs.nbytes + self.payload.nbytes
 
 
-def unified_table_bytes(rows: int, m0: int, d: int) -> int:
-    """Device bytes of a unified table with `rows` node blocks."""
-    return rows * m0 * (round_up(d, 8) * 2 + 4)
+@dataclasses.dataclass(frozen=True)
+class Unified8Table:
+    """int8 node blocks: row r holds m0 neighbors' codes, each neighbor's
+    dequant scale (x ~ code * scale) and their payload ids. The TPU carries
+    the scales as f32 bits in the id sublane (pack_unified8_rows)."""
+
+    codes: torch.Tensor  # [R, m0, d_pad] int8
+    scales: torch.Tensor  # [R, m0] f32
+    payload: torch.Tensor  # [R, m0] int32
+
+    @property
+    def rows(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def m0(self) -> int:
+        return self.codes.shape[1]
+
+    @property
+    def d_pad(self) -> int:
+        return self.codes.shape[2]
+
+    @property
+    def nbytes(self) -> int:
+        return self.codes.nbytes + self.scales.nbytes + self.payload.nbytes
+
+
+@dataclasses.dataclass(frozen=True)
+class Unified4Table:
+    """int4 node blocks: as Unified8Table with the codes (in [-7, 7]) packed
+    two per byte, the even lane in the low nibble. The nibble order is the
+    port's own; the TPU's (pack_unified4_rows) follows its sublane unpack."""
+
+    codes: torch.Tensor  # [R, m0, d_pad // 2] uint8
+    scales: torch.Tensor  # [R, m0] f32
+    payload: torch.Tensor  # [R, m0] int32
+
+    @property
+    def rows(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def m0(self) -> int:
+        return self.codes.shape[1]
+
+    @property
+    def d_pad(self) -> int:
+        return self.codes.shape[2] * 2
+
+    @property
+    def nbytes(self) -> int:
+        return self.codes.nbytes + self.scales.nbytes + self.payload.nbytes
+
+
+def tier_bytes(n_pad: int, m0: int, d: int) -> dict[str, int]:
+    """Device bytes of each tier's level-0 table over n_pad node blocks of
+    m0 neighbors; the int8 and int4 tiers also count the [n_pad, d_pad]
+    codes and [n_pad] scales side tables, as the JAX ladder does."""
+    d_pad = round_up(d, 8)
+    side = n_pad * d_pad + 4 * n_pad
+    return {
+        "unified": n_pad * m0 * (2 * d_pad + 4),
+        "unified8": n_pad * m0 * (d_pad + 8) + side,
+        "unified4": n_pad * m0 * (d_pad // 2 + 8) + side,
+    }
+
+
+def _pad_lanes(t: torch.Tensor) -> torch.Tensor:
+    """[N, d] -> [N, d_pad]: zero lanes up to a multiple of 8."""
+    d = t.shape[1]
+    return F.pad(t, (0, round_up(d, 8) - d)).contiguous()
 
 
 def _bf16_padded(vectors: torch.Tensor) -> torch.Tensor:
-    """f32 [N, d] -> bf16 [N, d_pad]: rounded to bf16 BEFORE any gather (as
-    pallas_gather.py:327 does), zero lanes up to a multiple of 8."""
-    d = vectors.shape[1]
-    xb = vectors.to(torch.bfloat16)
-    return F.pad(xb, (0, round_up(d, 8) - d)).contiguous()
+    """[N, d] -> bf16 [N, d_pad], rounded to bf16 BEFORE any gather (as
+    pallas_gather.py:327 does)."""
+    return _pad_lanes(vectors.to(torch.bfloat16))
 
 
 def _gather_blocks(xb: torch.Tensor, nbrs: torch.Tensor, chunk: int) -> torch.Tensor:
-    """[R, m] neighbor ids -> [R, m, d_pad] bf16 rows, written chunk by
-    chunk straight into the output (no transient copy of the table)."""
+    """[R, m] neighbor ids -> [R, m, W] rows of the [N, W] table `xb`,
+    written chunk by chunk straight into the output (no transient copy of
+    the table)."""
     r, m = nbrs.shape
     out = torch.empty((r, m, xb.shape[1]), dtype=xb.dtype, device=xb.device)
     flat_out = out.view(r * m, xb.shape[1])
@@ -117,6 +193,82 @@ def make_unified_table_chunked(
     copy of the vectors."""
     xb = _bf16_padded(vectors)
     return UnifiedTable(_gather_blocks(xb, level0, chunk), level0.contiguous())
+
+
+# Per-vector symmetric quantizers: the f32 arithmetic of the JAX package
+# (amax / 127 or / 7, divide, round half to even, clip), so codes are equal
+# and scales bit-equal. A zero vector gets scale 1 and zero codes.
+
+
+def _quantize(vectors: torch.Tensor, qmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+    v = vectors.float()
+    amax = v.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / float(qmax), torch.ones_like(amax))
+    codes = torch.clamp(torch.round(v / scale[:, None]), -qmax, qmax)
+    return codes.to(torch.int8), scale
+
+
+def quantize_int8(vectors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codes [N, D] int8 in [-127, 127], scales [N] f32); x ~ codes * scale."""
+    return _quantize(vectors, 127)
+
+
+def quantize_exact_i8(vectors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lossless codes for integer-valued data in [-128, 127] (the l2u8
+    space): codes = round(x), scale 1, so dequantized distances are exact."""
+    codes = torch.clamp(torch.round(vectors.float()), -128, 127).to(torch.int8)
+    return codes, torch.ones(vectors.shape[0], dtype=torch.float32, device=vectors.device)
+
+
+def quantize_int4(vectors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codes [N, D] int8 in [-7, 7], scales [N] f32); x ~ codes * scale."""
+    return _quantize(vectors, 7)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """[..., 2k] int8 codes in [-8, 7] -> [..., k] uint8: lane 2i in the low
+    nibble, lane 2i+1 in the high nibble (two's complement)."""
+    lo = codes[..., 0::2].to(torch.int32) & 0xF
+    hi = codes[..., 1::2].to(torch.int32) & 0xF
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4: [..., k] uint8 -> [..., 2k] int8."""
+    p = packed.to(torch.int32)
+    nib = torch.stack([p & 0xF, p >> 4], dim=-1)
+    nib = torch.where(nib >= 8, nib - 16, nib)  # sign-extend
+    return nib.reshape(*packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
+
+
+def make_unified8_table_chunked(
+    vectors: torch.Tensor, level0: torch.Tensor, chunk: int = 1 << 14,
+    exact: bool = False,
+) -> tuple[Unified8Table, torch.Tensor, torch.Tensor]:
+    """Level-0 int8 table plus the quantized side tables (codes [N_pad,
+    d_pad] int8, scales [N_pad] f32). `exact` uses the lossless scale-1
+    codes of the l2u8 space."""
+    codes, scales = (quantize_exact_i8 if exact else quantize_int8)(vectors)
+    codes = _pad_lanes(codes)
+    table = Unified8Table(
+        _gather_blocks(codes, level0, chunk), scales[level0.long()],
+        level0.contiguous(),
+    )
+    return table, codes, scales
+
+
+def make_unified4_table_chunked(
+    vectors: torch.Tensor, level0: torch.Tensor, chunk: int = 1 << 14
+) -> tuple[Unified4Table, torch.Tensor, torch.Tensor]:
+    """Level-0 int4 table plus the side tables (codes [N_pad, d_pad] int8
+    in [-7, 7], unpacked as the JAX package keeps them, and scales)."""
+    codes, scales = quantize_int4(vectors)
+    codes = _pad_lanes(codes)
+    table = Unified4Table(
+        _gather_blocks(pack_int4(codes), level0, chunk), scales[level0.long()],
+        level0.contiguous(),
+    )
+    return table, codes, scales
 
 
 def upper_level_sizes_u(upper_slot: torch.Tensor, u_pad: int) -> tuple[int, ...]:
@@ -168,16 +320,97 @@ def make_upper_tables(
     return tuple(out)
 
 
+class InlineTables(NamedTuple):
+    """The serving tables of one tier (JAX's tagged tuple)."""
+
+    tier: str  # "unified" | "unified8" | "unified4"
+    table: UnifiedTable | Unified8Table | Unified4Table
+    upper_tables: tuple  # ((bf16 UnifiedTable, slot_to_id), ...) per level
+    codes: torch.Tensor | None  # [N_pad, d_pad] int8 side table (int8/int4)
+    scales: torch.Tensor | None  # [N_pad] f32 side table (int8/int4)
+
+
+def build_inline_tables(
+    x: torch.Tensor, dg, dim: int, budget: int | None, *,
+    exact_i8: bool = False, keep_delta_tables: bool = True,
+) -> InlineTables:
+    """The tier ladder (pallas_gather.build_inline_tables): the bf16 tables
+    if they fit `budget` bytes (None: no limit), else int8, else int4, each
+    counted by tier_bytes. JAX's shape conditions are kept, so a shape picks
+    the same rung in both packages. Below int4 the JAX package serves the
+    split tier, which the port has not yet: MemoryError."""
+    n_pad, m0 = dg.level0.shape
+    d_pad_j = round_up(dim, 128)  # the TPU row's lane width
+    need = tier_bytes(n_pad, m0, dim)
+
+    def fits(tier: str) -> bool:
+        return budget is None or need[tier] <= budget
+
+    def upper_tabs():
+        if dg.max_level == 0:
+            return ()
+        sizes = upper_level_sizes_u(dg.upper_slot, dg.upper.shape[1])
+        return make_upper_tables(x, dg.upper, dg.upper_slot, level_sizes=sizes)
+
+    if m0 <= 128 and fits("unified"):
+        return InlineTables("unified", make_unified_table_chunked(x, dg.level0),
+                            upper_tabs(), None, None)
+    if 2 * m0 <= 128 and m0 * d_pad_j % 512 == 0 and fits("unified8"):
+        tier, (table, codes, scales) = "unified8", make_unified8_table_chunked(
+            x, dg.level0, exact=exact_i8
+        )
+    elif 2 * m0 <= 128 and m0 * d_pad_j % 1024 == 0 and fits("unified4"):
+        tier, (table, codes, scales) = "unified4", make_unified4_table_chunked(
+            x, dg.level0
+        )
+    else:
+        raise MemoryError(
+            f"no unified tier fits the budget of {budget} bytes (bf16 "
+            f"{need['unified']}, int8 {need['unified8']}, int4 "
+            f"{need['unified4']}): below int4 the JAX package serves the "
+            "split tier, not ported yet (ROADMAP.md queue 2, row 6: "
+            "hop_dist_inline); pass inline_neighbors=False to serve through "
+            "plain row gathers"
+        )
+    if not keep_delta_tables:
+        codes = scales = None
+    return InlineTables(tier, table, upper_tabs(), codes, scales)
+
+
 # ---------------------------------------------------------------------------
-# Kernel 1: the unified hop.
+# Kernels 1, 3 and 4: the unified hop (bf16, int8 and int4 rows).
 # ---------------------------------------------------------------------------
+
+# table type -> (tier, C entry, COUNTS field, tensors passed to the kernel
+# with their dtypes)
+_HOP_TIERS = {
+    UnifiedTable: ("bf16", "hop_dist_unified_bf16", "hop_dist_unified",
+                   (("vecs", torch.bfloat16), ("payload", torch.int32))),
+    Unified8Table: ("int8", "hop_dist_unified_int8", "hop_dist_unified8",
+                    (("codes", torch.int8), ("scales", torch.float32),
+                     ("payload", torch.int32))),
+    Unified4Table: ("int4", "hop_dist_unified_int4", "hop_dist_unified4",
+                    (("codes", torch.uint8), ("scales", torch.float32),
+                     ("payload", torch.int32))),
+}
+
+
+def _block_rows(table, idx: torch.Tensor) -> torch.Tensor:
+    """f32 neighbor rows [*idx.shape, m0, d_pad] of the blocks `idx`, in the
+    JAX kernel's arithmetic: bf16 widened, or code * scale in f32."""
+    if isinstance(table, UnifiedTable):
+        return table.vecs[idx].float()
+    codes = table.codes[idx]
+    if isinstance(table, Unified4Table):
+        codes = unpack_int4(codes)
+    return codes.float() * table.scales[idx][..., None]
 
 
 def hop_dist_unified_plain(
-    q: torch.Tensor, table: UnifiedTable, chosen: torch.Tensor, space: str = "l2"
+    q: torch.Tensor, table, chosen: torch.Tensor, space: str = "l2"
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the hop kernel: (dists [B, E*m0] f32,
-    ids [B, E*m0] int32). The same f32 operations on the same bf16 values,
+    """Plain PyTorch version of the hop kernels: (dists [B, E*m0] f32,
+    ids [B, E*m0] int32). The same f32 operations on the same values,
     summed in torch's order."""
     _check_space(space)
     if q.is_cuda:
@@ -186,7 +419,7 @@ def hop_dist_unified_plain(
     m0 = table.m0
     qp = F.pad(q.float(), (0, table.d_pad - q.shape[1]))[:, None, None, :]
     idx = chosen.long()
-    rows = table.vecs[idx].float()  # [B, E, m0, d_pad]
+    rows = _block_rows(table, idx)  # [B, E, m0, d_pad]
     if space == "ip":
         d = 1.0 - (rows * qp).sum(-1)
     else:
@@ -197,7 +430,7 @@ def hop_dist_unified_plain(
 
 def hop_dist_unified(
     q: torch.Tensor,  # [B, D] f32
-    table: UnifiedTable,
+    table: UnifiedTable | Unified8Table | Unified4Table,
     chosen: torch.Tensor,  # [B, E] int32 rows of `table` to expand
     space: str = "l2",
     *,
@@ -205,21 +438,29 @@ def hop_dist_unified(
     int4: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Expand `chosen` nodes: one contiguous block per (query, chosen) holds
-    the m0 neighbor vectors and their payload ids. Returns (dists [B, E*m0]
-    f32, ids [B, E*m0] int32). Replaces pallas_gather.hop_dist_unified
-    (bf16 rows); the int8 and int4 rows are not ported yet."""
-    if int8 or int4:
-        raise NotImplementedError(
-            "int8/int4 unified rows are not ported yet "
-            "(ROADMAP.md queue 2: _hop_dist_unified_kernel int8 and int4)"
+    the m0 neighbors' vectors (bf16, int8 or int4 codes) and their payload
+    ids. Returns (dists [B, E*m0] f32, ids [B, E*m0] int32). Replaces
+    pallas_gather.hop_dist_unified; the tier follows the table's type, and
+    `int8` / `int4` (the JAX flags) must agree with it."""
+    if type(table) not in _HOP_TIERS:
+        raise TypeError(f"hop_dist_unified: not a unified table: {type(table).__name__}")
+    kind, entry, counter, fields = _HOP_TIERS[type(table)]
+    if int8 and int4:
+        raise ValueError("hop_dist_unified: int8 and int4 are exclusive")
+    if (int8 and kind != "int8") or (int4 and kind != "int4"):
+        raise TypeError(
+            f"hop_dist_unified: int8={int8}, int4={int4} contradicts a "
+            f"{type(table).__name__}"
         )
     _check_space(space)
     if q.dim() != 2 or chosen.dim() != 2 or chosen.shape[0] != q.shape[0]:
         raise ValueError(f"bad shapes q {tuple(q.shape)} chosen {tuple(chosen.shape)}")
     if q.dtype != torch.float32 or chosen.dtype != torch.int32:
         raise TypeError("hop_dist_unified takes f32 queries and int32 chosen ids")
-    if table.vecs.dtype != torch.bfloat16 or table.payload.dtype != torch.int32:
-        raise TypeError("hop_dist_unified takes a bf16 table with int32 payload")
+    tensors = [getattr(table, name) for name, _ in fields]
+    for (name, dtype), t in zip(fields, tensors):
+        if t.dtype != dtype:
+            raise TypeError(f"hop_dist_unified: {kind} table {name} must be {dtype}")
     if q.shape[1] > table.d_pad:
         raise ValueError(f"query width {q.shape[1]} > table width {table.d_pad}")
     if q.device.type == "cpu":
@@ -230,10 +471,10 @@ def hop_dist_unified(
     from hnsw_tpu_torch.ops.cuda_lib import check, load_kernels
 
     dev = q.device
-    if any(t.device != dev for t in (chosen, table.vecs, table.payload)):
+    if any(t.device != dev for t in (chosen, *tensors)):
         raise ValueError("hop_dist_unified: tensors on different devices")
-    if not (table.vecs.is_contiguous() and table.payload.is_contiguous()):
-        raise ValueError("hop_dist_unified: table must be contiguous")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("hop_dist_unified: table must be contiguous and 16-byte aligned")
     if table.d_pad % 8 or table.d_pad * 4 > 48 * 1024:
         raise ValueError(f"hop_dist_unified: unsupported d_pad {table.d_pad}")
     b, e = chosen.shape
@@ -245,40 +486,52 @@ def hop_dist_unified(
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hop_dist_unified_bf16(
-            qp.data_ptr(), table.vecs.data_ptr(), table.payload.data_ptr(),
-            ch.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        rc = getattr(lib, entry)(
+            qp.data_ptr(), *(t.data_ptr() for t in tensors), ch.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
             b, e, m0, table.d_pad, table.rows, int(space == "ip"), stream,
         )
-    check(rc, "hop_dist_unified_bf16")
-    COUNTS.hop_dist_unified += 1
+    check(rc, entry)
+    setattr(COUNTS, counter, getattr(COUNTS, counter) + 1)
     return out_d, out_i
 
 
 # ---------------------------------------------------------------------------
-# Kernel 2: the f32 row-gather distance (exact rescore).
+# Kernels 2 and 5: the row-gather distance of the exact rescore (f32 and
+# bf16 vector tables).
 # ---------------------------------------------------------------------------
 
 
 def gather_dist_rows_plain(
     q: torch.Tensor, table: torch.Tensor, ids: torch.Tensor, space: str = "l2"
 ) -> torch.Tensor:
-    """Plain PyTorch version of the gather kernel: [B, K] distances in the
-    norm-expansion form max(|q|^2 + |x|^2 - 2 q.x, 0) (L2) or 1 - q.x."""
+    """Plain PyTorch version of the gather kernels: [B, K] distances. An f32
+    table takes the norm-expansion form max(|q|^2 + |x|^2 - 2 q.x, 0) or
+    1 - q.x, as _gather_dist_kernel does; a bf16 table the direct
+    difference sum((x - q)^2) or 1 - sum(x q) in f32, as
+    _gather_dist_kernel_pair does."""
     _check_space(space)
     if q.is_cuda:
         COUNTS.plain_on_cuda += 1
-    return gather_dist(q, table, ids, space)
+    if table.dtype == torch.float32:
+        return gather_dist(q, table, ids, space)
+    rows = table[ids.long()].float()  # [B, K, D]
+    q32 = q.float()[:, None, :]
+    if space == "ip":
+        return 1.0 - (rows * q32).sum(-1)
+    diff = rows - q32
+    return (diff * diff).sum(-1)
 
 
 def gather_dist_rows(
     q: torch.Tensor,  # [B, D] f32
-    table: torch.Tensor,  # [N, D] f32
+    table: torch.Tensor,  # [N, D] f32 or bf16
     ids: torch.Tensor,  # [B, K] int32, in range
     space: str = "l2",
 ) -> torch.Tensor:
     """[B, K] distances from q[b] to table[ids[b, j]]. Replaces
-    pallas_gather.gather_dist_pallas on an f32 table."""
+    pallas_gather.gather_dist_pallas on an f32 table (kernel 2) and on a
+    bf16 table (kernel 5)."""
     _check_space(space)
     if q.dim() != 2 or table.dim() != 2 or ids.dim() != 2:
         raise ValueError("gather_dist_rows takes 2-D q, table and ids")
@@ -286,8 +539,9 @@ def gather_dist_rows(
         raise ValueError(
             f"bad shapes q {tuple(q.shape)} table {tuple(table.shape)} ids {tuple(ids.shape)}"
         )
-    if q.dtype != torch.float32 or table.dtype != torch.float32 or ids.dtype != torch.int32:
-        raise TypeError("gather_dist_rows takes f32 q and table, int32 ids")
+    if (q.dtype != torch.float32 or ids.dtype != torch.int32
+            or table.dtype not in (torch.float32, torch.bfloat16)):
+        raise TypeError("gather_dist_rows takes f32 q, an f32 or bf16 table, int32 ids")
     if q.device.type == "cpu":
         return gather_dist_rows_plain(q, table, ids, space)
     if not q.is_cuda:
@@ -298,10 +552,12 @@ def gather_dist_rows(
     dev = q.device
     if table.device != dev or ids.device != dev:
         raise ValueError("gather_dist_rows: tensors on different devices")
-    if not table.is_contiguous():
-        raise ValueError("gather_dist_rows: table must be contiguous")
+    if not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError("gather_dist_rows: table must be contiguous and 16-byte aligned")
     if table.shape[1] * 4 > 48 * 1024:
         raise ValueError(f"gather_dist_rows: unsupported width {table.shape[1]}")
+    bf16 = table.dtype == torch.bfloat16
+    entry = "gather_dist_bf16" if bf16 else "gather_dist_f32"
     b, k = ids.shape
     qc = q.contiguous()
     idc = ids.contiguous()
@@ -309,10 +565,13 @@ def gather_dist_rows(
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gather_dist_f32(
+        rc = getattr(lib, entry)(
             qc.data_ptr(), table.data_ptr(), idc.data_ptr(), out.data_ptr(),
             b, k, table.shape[1], table.shape[0], int(space == "ip"), stream,
         )
-    check(rc, "gather_dist_f32")
-    COUNTS.gather_dist_rows += 1
+    check(rc, entry)
+    if bf16:
+        COUNTS.gather_dist_bf16 += 1
+    else:
+        COUNTS.gather_dist_rows += 1
     return out

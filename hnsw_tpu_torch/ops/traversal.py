@@ -6,7 +6,8 @@ descent over the upper layers, then a heap-driven best-first beam over
 level 0. Here, as in the JAX package, it is a batched, fixed-shape, masked
 program: every query carries a sorted beam of `ef` entries (distance, id*2 +
 expanded flag); each iteration expands the `expand` best unexpanded entries
-through the unified hop kernel (one contiguous block per expansion), drops
+through the unified hop kernel of the serving tier (bf16, int8 or int4: one
+contiguous block per expansion), drops
 candidates already in the beam or in a short ring history of expanded ids,
 and merges the rest into the beam with a bitonic merge.
 
@@ -196,7 +197,9 @@ def search_batch(
     entry_ids: torch.Tensor | None = None,  # [B] per-query entry override
     seed_ids: torch.Tensor | None = None,  # [B, S] distinct seeds (skip descent)
     seed_dists: torch.Tensor | None = None,  # [B, S] f32 distances of the seeds
-    unified_table: UnifiedTable | None = None,  # level-0 node blocks
+    # level-0 node blocks of any tier (UnifiedTable, Unified8Table or
+    # Unified4Table): the hop kernel follows the table's type
+    unified_table=None,
     upper_tables: tuple | None = None,  # ((table_l, slot_to_id_l), ...)
     expand: int = 1,
     max_iters: int = 0,  # 0 => 2*ef + 16

@@ -104,15 +104,28 @@ def test_device_graph_matches_jax(built, n_pad):
 
 
 def test_spaces_match_jax():
-    x = np.random.default_rng(3).normal(size=(5, 8)).astype(np.float32)
-    for name in ("l2", "ip", "cosine"):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(5, 8)).astype(np.float32)
+    u8 = rng.integers(0, 256, size=(5, 8)).astype(np.uint8)
+    for name in ("l2", "ip", "cosine", "l2u8"):
         ts, js = tspaces.get_space(name, 8), jspaces.get_space(name, 8)
-        assert (ts.name, ts.persist_name, ts.needs_sq_norms) == (
-            js.name, js.persist_name, js.needs_sq_norms
+        assert (ts.name, ts.persist_name, ts.needs_sq_norms, ts.exact_i8) == (
+            js.name, js.persist_name, js.needs_sq_norms, js.exact_i8
         )
-        np.testing.assert_array_equal(ts.preprocess(x), js.preprocess(x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspaces.get_space("l2u8", 8)
+        data = u8 if name == "l2u8" else x
+        np.testing.assert_array_equal(ts.preprocess(data), js.preprocess(data))
+        np.testing.assert_array_equal(ts.decode(ts.preprocess(data)),
+                                      js.decode(js.preprocess(data)))
+    u = tspaces.get_space("l2u8", 8)
+    assert type(u) is tspaces.L2SpaceU8 and u.exact_i8 and u.persist_name == "l2u8"
+    np.testing.assert_array_equal(u.preprocess(u8), u8.astype(np.float32) - 128.0)
+    np.testing.assert_array_equal(u.decode(u.preprocess(u8)), u8.astype(np.float32))
+    np.testing.assert_array_equal(u.preprocess(u8.astype(np.float32)), u.preprocess(u8))
+    for bad in (np.full((1, 8), 256.0), np.full((1, 8), -1.0)):
+        with pytest.raises(ValueError, match=r"\[0, 255\]"):
+            u.preprocess(bad)
+        with pytest.raises(ValueError):
+            jspaces.get_space("l2u8", 8).preprocess(bad)
     with pytest.raises(ValueError):
         tspaces.get_space("hamming", 8)
 

@@ -3,6 +3,8 @@ versions of the hop and gather kernels, the beam's bitonic merge and its
 expansion pick, against the JAX package (Pallas in interpret mode). The
 CUDA kernels themselves run only on a card (`cuda` marker)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,10 +118,25 @@ def test_kernel_wrappers_check_inputs():
                             torch.zeros((4, 16), dtype=torch.int32))
     q = torch.zeros((2, 8))
     chosen = torch.zeros((2, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the int8 / int4 flags must agree with the table's type
+    with pytest.raises(TypeError, match="contradicts"):
         gk.hop_dist_unified(q, table, chosen, int8=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="contradicts"):
         gk.hop_dist_unified(q, table, chosen, int4=True)
+    t8 = gk.Unified8Table(torch.zeros((4, 16, 8), dtype=torch.int8),
+                          torch.ones((4, 16)), torch.zeros((4, 16), dtype=torch.int32))
+    t4 = gk.Unified4Table(torch.zeros((4, 16, 4), dtype=torch.uint8),
+                          torch.ones((4, 16)), torch.zeros((4, 16), dtype=torch.int32))
+    with pytest.raises(TypeError, match="contradicts"):
+        gk.hop_dist_unified(q, t8, chosen, int4=True)
+    with pytest.raises(TypeError, match="contradicts"):
+        gk.hop_dist_unified(q, t4, chosen, int8=True)
+    with pytest.raises(ValueError, match="exclusive"):
+        gk.hop_dist_unified(q, t8, chosen, int8=True, int4=True)
+    with pytest.raises(TypeError):
+        gk.hop_dist_unified(q, gk.Unified8Table(t8.codes.float(), t8.scales, t8.payload), chosen)
+    with pytest.raises(TypeError):
+        gk.gather_dist_rows(q, torch.zeros((4, 8), dtype=torch.float16), chosen)
     with pytest.raises(TypeError):
         gk.hop_dist_unified(q, table, chosen.long())
     with pytest.raises(ValueError):
@@ -129,10 +146,13 @@ def test_kernel_wrappers_check_inputs():
     with pytest.raises(TypeError):
         gk.gather_dist_rows(q.double(), torch.zeros((4, 8)), chosen)
     gk.COUNTS.reset()
-    gk.hop_dist_unified(q, table, chosen)
+    for tab, flags in ((table, {}), (t8, {"int8": True}), (t4, {"int4": True})):
+        d, ids = gk.hop_dist_unified(q, tab, chosen, **flags)
+        assert d.shape == ids.shape == (2, 16)
     gk.gather_dist_rows(q, torch.zeros((4, 8)), chosen)
-    assert (gk.COUNTS.hop_dist_unified, gk.COUNTS.gather_dist_rows,
-            gk.COUNTS.plain_on_cuda) == (0, 0, 0)  # CPU tensors: plain, no launch
+    gk.gather_dist_rows(q, torch.zeros((4, 8), dtype=torch.bfloat16), chosen)
+    # CPU tensors: plain versions, no launch
+    assert dataclasses.astuple(gk.COUNTS) == (0,) * len(dataclasses.fields(gk.COUNTS))
 
 
 def test_bitonic_merge_matches_jax_on_ties():
