@@ -12,11 +12,11 @@ Phase 2  the main path at bench.py's operating point (N=100k clustered
          ef=200 and (c) the high-recall mode with exact rescore, each gated on
          recall against the port's exact fp32 oracle, with the kernels'
          launch counts read around each mode.
-Phase 3  the serving tiers below bf16 at N=1M (d=128, M=16, efC=200, the
+Phase 3  the serving tiers below bf16 at N=2M (d=128, M=16, efC=200, the
          reference's clustered data with 4096 centers), each tier chosen with
          rebuild_device_tables(unified_max_bytes=...): (d) int8 with f32
          storage and the auto rescore, (e) int4 with bf16 storage (the
-         reference's N=4M serving configuration, cut to 1M), and (f) the
+         reference's N=4M serving configuration, cut to 2M), and (f) the
          exact l2u8 space on 100k uint8 vectors over lossless int8 codes.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
@@ -36,7 +36,7 @@ N, DIM, M, EF_C, K = 100_000, 128, 16, 200, 10
 BATCH = 8192
 SEED = 123
 EXPECTED_RECALL = 0.9945  # bench.py's operating point, for information only
-N_TIERS, N_U8, NQ_TIERS = 1_000_000, 100_000, 1024
+N_TIERS, N_U8, NQ_TIERS = 2_000_000, 100_000, 1024
 # the H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor) flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -123,7 +123,7 @@ def phase1(dev) -> dict:
     rng = np.random.default_rng(7)
     out = {}
 
-    def make_table(tier, rows, m0, d):
+    def make_table(tier, rows, m0, d, exact=False):
         d_pad = -(-d // 8) * 8
         payload = torch.from_numpy(
             rng.integers(0, 1 << 30, size=(rows, m0)).astype(np.int32)).to(dev)
@@ -132,27 +132,38 @@ def phase1(dev) -> dict:
                 rng.normal(size=(rows, m0, d_pad)).astype(np.float32)).to(dev).to(torch.bfloat16)
             vecs[:, :, d:] = 0
             return gk.UnifiedTable(vecs.contiguous(), payload)
-        qmax = 127 if tier == "int8" else 7
+        lo, hi = (-128, 127) if exact else (-127, 127) if tier == "int8" else (-7, 7)
         codes = torch.from_numpy(
-            rng.integers(-qmax, qmax + 1, size=(rows, m0, d_pad)).astype(np.int8)).to(dev)
+            rng.integers(lo, hi + 1, size=(rows, m0, d_pad)).astype(np.int8)).to(dev)
         codes[:, :, d:] = 0
         scales = torch.from_numpy(
             rng.uniform(0.01, 0.1, size=(rows, m0)).astype(np.float32)).to(dev)
+        if exact:  # l2u8's lossless codes
+            scales = torch.ones_like(scales)
         if tier == "int8":
             return gk.Unified8Table(codes.contiguous(), scales, payload)
         return gk.Unified4Table(gk.pack_int4(codes).contiguous(), scales, payload)
 
-    def hop_case(tier, b, e, m0, d, space, rows, timed):
-        table = make_table(tier, rows, m0, d)
-        q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    def hop_case(tier, b, e, m0, d, space, rows, timed, exact=False):
+        table = make_table(tier, rows, m0, d, exact)
+        if exact:  # integer queries, as l2u8 shifts uint8 data by -128
+            q = torch.from_numpy(rng.integers(-128, 128, size=(b, d)).astype(np.float32)).to(dev)
+        else:
+            q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
         chosen = torch.from_numpy(rng.integers(0, rows, size=(b, e)).astype(np.int32)).to(dev)
         dk, ik = gk.hop_dist_unified(q, table, chosen, space)
         dp, ip_ = gk.hop_dist_unified_plain(q, table, chosen, space)
         torch.cuda.synchronize()
-        tag = f"{tier} hop B={b} E={e} m0={m0} d={d} {space}"
+        tag = f"{tier} hop B={b} E={e} m0={m0} d={d} {space}" + (" scale-1 codes" if exact else "")
         if not torch.equal(ik, ip_):
             fail(f"{tag}: ids differ")
-        if not torch.allclose(dk, dp, rtol=1e-5, atol=1e-4):
+        if exact:
+            # integer distances below 2^24 are exact in f32: equal to int64
+            rows_i = table.codes[chosen.long()][..., :d].long()
+            ref = ((rows_i - q.long()[:, None, None, :]) ** 2).sum(-1).reshape(b, e * m0)
+            if not (torch.equal(dk, dp) and torch.equal(dk.long(), ref)):
+                fail(f"{tag}: dists differ from the exact int64 distances")
+        elif not torch.allclose(dk, dp, rtol=1e-5, atol=1e-4):
             fail(f"{tag}: dists differ, max {float((dk - dp).abs().max())}")
         err = float((dk - dp).abs().max())
         msg = f"[phase1] {tag}: ok, max_abs_err {err:.3e}"
@@ -175,19 +186,26 @@ def phase1(dev) -> dict:
         return res
 
     # 16384 node blocks: 134 MB (bf16), 71 MB (int8), 38 MB (int4) at
-    # m0=32, d=128, past the 50 MB L2 like the real tables
+    # m0=32, d=128, past the 50 MB L2 like the real tables. The first case,
+    # B=1024 and E=1, is the main path's usual launch (the default expand=1
+    # of phase 2 (b), (c) and every phase-3 mode) and gives the kernels
+    # line's times; E=2 at B=1024 and B=8192 is the speed mode's (a).
     for tier in ("bf16", "int8", "int4"):
         cases = [
+            hop_case(tier, 1024, 1, 32, 128, "l2", 16384, True),
             hop_case(tier, 1024, 2, 32, 128, "l2", 16384, True),
             hop_case(tier, 1024, 2, 32, 128, "ip", 16384, False),
             hop_case(tier, 1024, 2, 32, 96, "l2", 16384, False),
             hop_case(tier, 8192, 2, 32, 128, "l2", 16384, True),
         ]
-        if tier == "bf16":
+        if tier == "bf16":  # the upper-level descent tables (M=16)
             cases.append(hop_case(tier, 1024, 1, 16, 128, "l2", 4096, True))
-        out[f"hop_{tier}"] = dict(cases[0], max_abs_err=max(c["err"] for c in cases),
-                                  b8192_ms=cases[3]["ms"], b8192_plain_ms=cases[3]["plain_ms"],
-                                  b8192_bound_ms=cases[3]["bound_ms"])
+        if tier == "int8":  # l2u8's lossless codes, exact distances
+            cases.append(hop_case(tier, 1024, 1, 32, 128, "l2", 16384, False, exact=True))
+        out[f"hop_{tier}"] = dict(
+            cases[0], max_abs_err=max(c["err"] for c in cases),
+            **{f"{tag}_{key}": cases[i][key] for i, tag in ((1, "e2"), (4, "b8192"))
+               for key in ("ms", "plain_ms", "bound_ms")})
 
     def gather_case(dtype, b, kk, d, space, rows, timed):
         table = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(dev)
@@ -387,11 +405,9 @@ def tier_state(idx, budget, tier):
     torch.cuda.synchronize()
     if st.tier != tier:
         fail(f"budget {budget} served tier {st.tier}, expected {tier}")
-    side = sum(t.nbytes for t in (st.codes, st.scales) if t is not None)
-    nbytes = st.unified.nbytes + side
+    nbytes = st.unified.nbytes
     cap = "the default budget" if budget is None else f"a budget of {budget / 1e9:.3f} GB"
-    log(f"[phase3] {tier} tables under {cap}: "
-        f"{st.unified.nbytes / 1e9:.3f} GB + {side / 1e9:.3f} GB side tables, "
+    log(f"[phase3] {tier} tables under {cap}: level-0 table {nbytes / 1e9:.3f} GB, "
         f"vectors {str(st.vectors.dtype)[6:]}, sync {time.time() - t0:.1f}s")
     return st, nbytes
 
@@ -420,7 +436,8 @@ def phase3(dev, launches) -> dict:
 
     st = idx._sync_device()
     need = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], DIM)
-    log(f"[phase3] n_pad {st.graph.n_pad}, tier bytes (port layouts): "
+    log(f"[phase3] n_pad {st.graph.n_pad}, tier budgets (port tables + the JAX "
+        "ladder's side tables, tier_bytes): "
         + ", ".join(f"{t} {b / 1e9:.3f} GB" for t, b in need.items()))
     del st
     params = SearchParams(k=K, ef=200, entry_seeds=4)

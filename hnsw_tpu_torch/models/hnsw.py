@@ -109,8 +109,6 @@ class _DeviceState:
     tier: str | None  # "unified" | "unified8" | "unified4" | None (gathers)
     unified: object  # UnifiedTable | Unified8Table | Unified4Table | None
     upper_tables: tuple | None  # bf16 descent tables on every tier
-    codes: torch.Tensor | None  # int8/int4 side tables, unless
-    scales: torch.Tensor | None  # keep_delta_tables is False
 
 
 class HNSWIndex:
@@ -157,9 +155,6 @@ class HNSWIndex:
         # None: UNIFIED_FREE_SHARE of the card's free memory (no limit on
         # the CPU); the ladder picks bf16, else int8, else int4
         self.unified_max_bytes: int | None = None
-        # False drops the int8/int4 codes and scales side tables after the
-        # unified table is built (a serve-only index)
-        self.keep_delta_tables = True
         self._device: _DeviceState | None = None
         self._landmark_cache = None
         self._dirty = True
@@ -265,19 +260,17 @@ class HNSWIndex:
             x32 = x.float()
             sq = (x32 * x32).sum(-1)
             del x32
-        tier = table = upper = codes = scales = None
+        tier = table = upper = None
         if self.inline_neighbors:
-            tier, table, upper, codes, scales = build_inline_tables(
-                x, dg, self.dim, self._unified_budget(),
-                exact_i8=self.space.exact_i8,
-                keep_delta_tables=self.keep_delta_tables,
+            tier, table, upper = build_inline_tables(
+                x, dg, self.dim, self._unified_budget(), exact_i8=self.space.exact_i8
             )
         deleted = np.zeros(n_pad, dtype=bool)
         deleted[:n] = self._builder.export_deleted().astype(bool)
         labels_np = np.full(n_pad, -1, dtype=np.int64)
         labels_np[:n] = g.labels
         self._device = _DeviceState(
-            dg, x, sq, deleted, labels_np, tier, table, upper or None, codes, scales
+            dg, x, sq, deleted, labels_np, tier, table, upper or None
         )
         self._builder.clear_dirty()
 

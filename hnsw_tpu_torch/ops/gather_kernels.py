@@ -146,8 +146,11 @@ class Unified4Table:
 
 def tier_bytes(n_pad: int, m0: int, d: int) -> dict[str, int]:
     """Device bytes of each tier's level-0 table over n_pad node blocks of
-    m0 neighbors; the int8 and int4 tiers also count the [n_pad, d_pad]
-    codes and [n_pad] scales side tables, as the JAX ladder does."""
+    m0 neighbors, the budget the ladder holds each tier to. The int8 and int4
+    tiers also count [n_pad, d_pad] codes and [n_pad] scales side tables, as
+    the JAX ladder does, so a shape picks the same rung in both packages;
+    the JAX package keeps those for its row-delta sync, which is not ported,
+    so the port builds the table and drops them."""
     d_pad = round_up(d, 8)
     side = n_pad * d_pad + 4 * n_pad
     return {
@@ -244,31 +247,25 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 def make_unified8_table_chunked(
     vectors: torch.Tensor, level0: torch.Tensor, chunk: int = 1 << 14,
     exact: bool = False,
-) -> tuple[Unified8Table, torch.Tensor, torch.Tensor]:
-    """Level-0 int8 table plus the quantized side tables (codes [N_pad,
-    d_pad] int8, scales [N_pad] f32). `exact` uses the lossless scale-1
-    codes of the l2u8 space."""
+) -> Unified8Table:
+    """Level-0 int8 table from per-vector codes and scales; `exact` uses the
+    lossless scale-1 codes of the l2u8 space."""
     codes, scales = (quantize_exact_i8 if exact else quantize_int8)(vectors)
-    codes = _pad_lanes(codes)
-    table = Unified8Table(
-        _gather_blocks(codes, level0, chunk), scales[level0.long()],
+    return Unified8Table(
+        _gather_blocks(_pad_lanes(codes), level0, chunk), scales[level0.long()],
         level0.contiguous(),
     )
-    return table, codes, scales
 
 
 def make_unified4_table_chunked(
     vectors: torch.Tensor, level0: torch.Tensor, chunk: int = 1 << 14
-) -> tuple[Unified4Table, torch.Tensor, torch.Tensor]:
-    """Level-0 int4 table plus the side tables (codes [N_pad, d_pad] int8
-    in [-7, 7], unpacked as the JAX package keeps them, and scales)."""
+) -> Unified4Table:
+    """Level-0 int4 table: codes in [-7, 7], two per byte, and scales."""
     codes, scales = quantize_int4(vectors)
-    codes = _pad_lanes(codes)
-    table = Unified4Table(
-        _gather_blocks(pack_int4(codes), level0, chunk), scales[level0.long()],
-        level0.contiguous(),
+    return Unified4Table(
+        _gather_blocks(pack_int4(_pad_lanes(codes)), level0, chunk),
+        scales[level0.long()], level0.contiguous(),
     )
-    return table, codes, scales
 
 
 def upper_level_sizes_u(upper_slot: torch.Tensor, u_pad: int) -> tuple[int, ...]:
@@ -326,13 +323,10 @@ class InlineTables(NamedTuple):
     tier: str  # "unified" | "unified8" | "unified4"
     table: UnifiedTable | Unified8Table | Unified4Table
     upper_tables: tuple  # ((bf16 UnifiedTable, slot_to_id), ...) per level
-    codes: torch.Tensor | None  # [N_pad, d_pad] int8 side table (int8/int4)
-    scales: torch.Tensor | None  # [N_pad] f32 side table (int8/int4)
 
 
 def build_inline_tables(
-    x: torch.Tensor, dg, dim: int, budget: int | None, *,
-    exact_i8: bool = False, keep_delta_tables: bool = True,
+    x: torch.Tensor, dg, dim: int, budget: int | None, *, exact_i8: bool = False
 ) -> InlineTables:
     """The tier ladder (pallas_gather.build_inline_tables): the bf16 tables
     if they fit `budget` bytes (None: no limit), else int8, else int4, each
@@ -353,16 +347,11 @@ def build_inline_tables(
         return make_upper_tables(x, dg.upper, dg.upper_slot, level_sizes=sizes)
 
     if m0 <= 128 and fits("unified"):
-        return InlineTables("unified", make_unified_table_chunked(x, dg.level0),
-                            upper_tabs(), None, None)
-    if 2 * m0 <= 128 and m0 * d_pad_j % 512 == 0 and fits("unified8"):
-        tier, (table, codes, scales) = "unified8", make_unified8_table_chunked(
-            x, dg.level0, exact=exact_i8
-        )
+        tier, table = "unified", make_unified_table_chunked(x, dg.level0)
+    elif 2 * m0 <= 128 and m0 * d_pad_j % 512 == 0 and fits("unified8"):
+        tier, table = "unified8", make_unified8_table_chunked(x, dg.level0, exact=exact_i8)
     elif 2 * m0 <= 128 and m0 * d_pad_j % 1024 == 0 and fits("unified4"):
-        tier, (table, codes, scales) = "unified4", make_unified4_table_chunked(
-            x, dg.level0
-        )
+        tier, table = "unified4", make_unified4_table_chunked(x, dg.level0)
     else:
         raise MemoryError(
             f"no unified tier fits the budget of {budget} bytes (bf16 "
@@ -372,9 +361,7 @@ def build_inline_tables(
             "hop_dist_inline); pass inline_neighbors=False to serve through "
             "plain row gathers"
         )
-    if not keep_delta_tables:
-        codes = scales = None
-    return InlineTables(tier, table, upper_tabs(), codes, scales)
+    return InlineTables(tier, table, upper_tabs())
 
 
 # ---------------------------------------------------------------------------
@@ -433,25 +420,15 @@ def hop_dist_unified(
     table: UnifiedTable | Unified8Table | Unified4Table,
     chosen: torch.Tensor,  # [B, E] int32 rows of `table` to expand
     space: str = "l2",
-    *,
-    int8: bool = False,
-    int4: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Expand `chosen` nodes: one contiguous block per (query, chosen) holds
     the m0 neighbors' vectors (bf16, int8 or int4 codes) and their payload
     ids. Returns (dists [B, E*m0] f32, ids [B, E*m0] int32). Replaces
-    pallas_gather.hop_dist_unified; the tier follows the table's type, and
-    `int8` / `int4` (the JAX flags) must agree with it."""
+    pallas_gather.hop_dist_unified; the table's type picks the tier (the
+    JAX flags int8= and int4=)."""
     if type(table) not in _HOP_TIERS:
         raise TypeError(f"hop_dist_unified: not a unified table: {type(table).__name__}")
     kind, entry, counter, fields = _HOP_TIERS[type(table)]
-    if int8 and int4:
-        raise ValueError("hop_dist_unified: int8 and int4 are exclusive")
-    if (int8 and kind != "int8") or (int4 and kind != "int4"):
-        raise TypeError(
-            f"hop_dist_unified: int8={int8}, int4={int4} contradicts a "
-            f"{type(table).__name__}"
-        )
     _check_space(space)
     if q.dim() != 2 or chosen.dim() != 2 or chosen.shape[0] != q.shape[0]:
         raise ValueError(f"bad shapes q {tuple(q.shape)} chosen {tuple(chosen.shape)}")

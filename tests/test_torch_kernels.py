@@ -118,21 +118,21 @@ def test_kernel_wrappers_check_inputs():
                             torch.zeros((4, 16), dtype=torch.int32))
     q = torch.zeros((2, 8))
     chosen = torch.zeros((2, 1), dtype=torch.int32)
-    # the int8 / int4 flags must agree with the table's type
-    with pytest.raises(TypeError, match="contradicts"):
-        gk.hop_dist_unified(q, table, chosen, int8=True)
-    with pytest.raises(TypeError, match="contradicts"):
-        gk.hop_dist_unified(q, table, chosen, int4=True)
     t8 = gk.Unified8Table(torch.zeros((4, 16, 8), dtype=torch.int8),
                           torch.ones((4, 16)), torch.zeros((4, 16), dtype=torch.int32))
     t4 = gk.Unified4Table(torch.zeros((4, 16, 4), dtype=torch.uint8),
                           torch.ones((4, 16)), torch.zeros((4, 16), dtype=torch.int32))
-    with pytest.raises(TypeError, match="contradicts"):
-        gk.hop_dist_unified(q, t8, chosen, int4=True)
-    with pytest.raises(TypeError, match="contradicts"):
-        gk.hop_dist_unified(q, t4, chosen, int8=True)
-    with pytest.raises(ValueError, match="exclusive"):
-        gk.hop_dist_unified(q, t8, chosen, int8=True, int4=True)
+    # the table's type picks the tier (JAX's int8= / int4= flags), and each
+    # tier's tensors must have that tier's dtypes
+    with pytest.raises(TypeError, match="not a unified table"):
+        gk.hop_dist_unified(q, table.vecs, chosen)
+    with pytest.raises(TypeError, match="int8 table codes"):
+        gk.hop_dist_unified(q, gk.Unified8Table(t4.codes, t8.scales, t8.payload), chosen)
+    with pytest.raises(TypeError, match="int4 table codes"):
+        gk.hop_dist_unified(q, gk.Unified4Table(t8.codes[..., :4], t4.scales, t4.payload),
+                            chosen)
+    with pytest.raises(TypeError, match="bf16 table vecs"):
+        gk.hop_dist_unified(q, gk.UnifiedTable(table.vecs.float(), table.payload), chosen)
     with pytest.raises(TypeError):
         gk.hop_dist_unified(q, gk.Unified8Table(t8.codes.float(), t8.scales, t8.payload), chosen)
     with pytest.raises(TypeError):
@@ -146,8 +146,8 @@ def test_kernel_wrappers_check_inputs():
     with pytest.raises(TypeError):
         gk.gather_dist_rows(q.double(), torch.zeros((4, 8)), chosen)
     gk.COUNTS.reset()
-    for tab, flags in ((table, {}), (t8, {"int8": True}), (t4, {"int4": True})):
-        d, ids = gk.hop_dist_unified(q, tab, chosen, **flags)
+    for tab in (table, t8, t4):
+        d, ids = gk.hop_dist_unified(q, tab, chosen)
         assert d.shape == ids.shape == (2, 16)
     gk.gather_dist_rows(q, torch.zeros((4, 8)), chosen)
     gk.gather_dist_rows(q, torch.zeros((4, 8), dtype=torch.bfloat16), chosen)

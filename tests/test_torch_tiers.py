@@ -139,9 +139,12 @@ def test_l2u8_distances_bit_exact(u8_index, tier):
     st = idx.rebuild_device_tables(tier_bytes(n_pad, m0, x.shape[1])[tier])
     assert st.tier == tier and idx.space.exact_i8
     if tier == "unified8":
-        np.testing.assert_array_equal(st.codes[: len(x), : x.shape[1]].numpy(),
-                                      x.astype(np.int64) - 128)
-        assert bool((st.scales == 1.0).all())
+        # lossless codes: every real neighbor's row is its uint8 vector - 128
+        real = st.unified.payload.long() < len(x)
+        codes = st.unified.codes[real][:, : x.shape[1]].numpy()
+        np.testing.assert_array_equal(
+            codes, x.astype(np.int64)[st.unified.payload[real].long().numpy()] - 128)
+        assert bool((st.unified.scales == 1.0).all())
     d, lab = idx.search(q, params=SearchParams(k=K, ef=64, entry_seeds=4))
     assert (lab >= 0).all()
     np.testing.assert_array_equal(d.astype(np.float64), _exact_u8(q, x, lab))
