@@ -18,6 +18,13 @@ Phase 3  the serving tiers below bf16 at N=2M (d=128, M=16, efC=200, the
          storage and the auto rescore, (e) int4 with bf16 storage (the
          reference's N=4M serving configuration, cut to 2M), and (f) the
          exact l2u8 space on 100k uint8 vectors over lossless int8 codes.
+Phase 4  the device-wave bulk build (bulk_build, d=128, M=16, efC=200,
+         defaults first_wave=4096 and select_c=64: waves of up to 16384 at
+         expand=2, ef=200, on the split tier through the hop_dist_inline
+         kernel with row-delta syncs): (g) phase 2's 100k dataset, held to
+         the host-built graph's recall; (h) N=1M of the reference's 1M sweep
+         data, then served after rebuild_device_tables(), then 1000 inserts
+         that must sync as a delta.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -26,6 +33,7 @@ its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +45,7 @@ BATCH = 8192
 SEED = 123
 EXPECTED_RECALL = 0.9945  # bench.py's operating point, for information only
 N_TIERS, N_U8, NQ_TIERS = 2_000_000, 100_000, 1024
+N_BULK = 1_000_000
 # the H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor) flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -198,14 +207,73 @@ def phase1(dev) -> dict:
             hop_case(tier, 1024, 2, 32, 96, "l2", 16384, False),
             hop_case(tier, 8192, 2, 32, 128, "l2", 16384, True),
         ]
-        if tier == "bf16":  # the upper-level descent tables (M=16)
+        if tier == "bf16":
+            # the upper-level descent tables (M=16), and a bulk-build wave's
+            # launch, for the split kernel's time to stand beside
             cases.append(hop_case(tier, 1024, 1, 16, 128, "l2", 4096, True))
+            cases.append(hop_case(tier, 16384, 2, 32, 128, "l2", 16384, True))
+            out["hop_bf16_b16384_ms"] = cases[-1]["ms"]
         if tier == "int8":  # l2u8's lossless codes, exact distances
             cases.append(hop_case(tier, 1024, 1, 32, 128, "l2", 16384, False, exact=True))
         out[f"hop_{tier}"] = dict(
             cases[0], max_abs_err=max(c["err"] for c in cases),
             **{f"{tag}_{key}": cases[i][key] for i, tag in ((1, "e2"), (4, "b8192"))
                for key in ("ms", "plain_ms", "bound_ms")})
+
+    def inline_case(b, e, m0, d, space, rows, timed):
+        """hop_dist_inline (the split tier) against its plain version."""
+        d_pad = -(-d // 8) * 8
+        nbr = torch.from_numpy(
+            rng.normal(size=(rows, m0, d_pad)).astype(np.float32)).to(dev).to(torch.bfloat16)
+        nbr[:, :, d:] = 0
+        nbr = nbr.contiguous()
+        level0 = torch.from_numpy(
+            rng.integers(0, 1 << 30, size=(rows, m0)).astype(np.int32)).to(dev)
+        q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+        chosen = torch.from_numpy(rng.integers(0, rows, size=(b, e)).astype(np.int32)).to(dev)
+        dk, ik = gk.hop_dist_inline(q, nbr, level0, chosen, space)
+        dp, ip_ = gk.hop_dist_inline_plain(q, nbr, level0, chosen, space)
+        torch.cuda.synchronize()
+        tag = f"split hop B={b} E={e} m0={m0} d={d} {space}"
+        if not torch.equal(ik, ip_):
+            fail(f"{tag}: ids differ")
+        if not torch.allclose(dk, dp, rtol=1e-5, atol=1e-4):
+            fail(f"{tag}: dists differ, max {float((dk - dp).abs().max())}")
+        err = float((dk - dp).abs().max())
+        msg = f"[phase1] {tag}: ok, max_abs_err {err:.3e}"
+        res = {"err": err}
+        if timed:
+            ms, pms = timed_pair(lambda: gk.hop_dist_inline(q, nbr, level0, chosen, space),
+                                 lambda: gk.hop_dist_inline_plain(q, nbr, level0, chosen, space))
+            row_bytes = HOP_ROW_BYTES["bf16"](d_pad)
+            blocks = int(torch.unique(chosen).numel())
+            nbytes = blocks * m0 * row_bytes + b * d_pad * 4 + b * e * 4 + b * e * m0 * 8
+            res.update(ms=ms, plain_ms=pms, library_ms=None,
+                       read_bound_ms=b * e * m0 * row_bytes / PEAK_BYTES * 1e3,
+                       **bound(nbytes, b * e * m0 * d_pad * HOP_OPS["bf16"]))
+            gb = b * e * m0 * row_bytes / 1e9
+            msg += (f", kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s of blocks read), "
+                    f"plain {pms:.4f} ms, bound as read {res['read_bound_ms']:.4f} ms, bound "
+                    f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {blocks} distinct blocks), "
+                    "library: none")
+        log(msg)
+        return res
+
+    # the split tier's hop: the last timed case, B=16384 and E=2, is a
+    # bulk-build wave's launch (phase 4) and gives the kernels line's times
+    cases = [
+        inline_case(1024, 1, 32, 128, "l2", 16384, True),
+        inline_case(1024, 2, 32, 128, "l2", 16384, True),
+        inline_case(8192, 2, 32, 128, "l2", 16384, True),
+        inline_case(16384, 2, 32, 128, "l2", 16384, True),
+        inline_case(1024, 2, 32, 128, "ip", 16384, False),
+        inline_case(1024, 1, 32, 96, "l2", 16384, False),
+        inline_case(1024, 2, 32, 96, "ip", 16384, False),
+        inline_case(1024, 1, 16, 128, "l2", 4096, False),
+    ]
+    out["hop_inline"] = dict(cases[3], max_abs_err=max(c["err"] for c in cases))
+    log(f"[phase1] split hop vs unified bf16 hop at B=16384 E=2: "
+        f"{cases[3]['ms']:.4f} ms vs {out['hop_bf16_b16384_ms']:.4f} ms")
 
     def gather_case(dtype, b, kk, d, space, rows, timed):
         table = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(dev)
@@ -362,7 +430,8 @@ def phase2(dev, launches) -> dict:
     if worst > 1.0:
         fail("(c) distances disagree with the oracle's")
     return {"recall": {"a": rec_a, "b": rec_b, "c": rec_c},
-            "qps": {"a": qps_a, "b": qps_b, "c": qps_c}}
+            "qps": {"a": qps_a, "b": qps_b, "c": qps_c},
+            "data": (x, q[:1024], gt[:1024])}  # for phase 4 (g)
 
 
 def oracle_error(d, lab, q, x, gt, gt_d) -> float:
@@ -523,6 +592,181 @@ def phase3(dev, launches) -> dict:
         fail(f"(f) tie-aware recall {rec} < 0.95")
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 4: the device-wave bulk build.
+# ---------------------------------------------------------------------------
+
+
+def check_waves(name, idx, n_pad):
+    """The launch record of a bulk build: every wave on the split tier with
+    the split kernel launched in it, and every sync after the first a delta
+    unless more than n_pad // 2 rows were dirty (the rule for a full sync).
+    Returns the per-stage seconds summed over the waves."""
+    waves = idx.wave_log
+    if not waves:
+        fail(f"({name}) no wave ran")
+    for i, w in enumerate(waves):
+        if w["tier"] != "split":
+            fail(f"({name}) wave {i} ran on tier {w['tier']}, expected split")
+        if w["hop_dist_inline"] <= 0:
+            fail(f"({name}) wave {i} never launched hop_dist_inline")
+        want_full = i == 0 or w["sync_refusal"] == "more than n_pad // 2 dirty rows"
+        if (w["sync_mode"] == "full") != want_full or w["sync_mode"] not in ("full", "delta"):
+            fail(f"({name}) wave {i} synced as {w['sync_mode']} ({w['sync_refusal']})")
+    stages = {s: sum(w[s] for w in waves) for s in ("sync_s", "search_s", "select_s", "link_s")}
+    modes = [w["sync_mode"] for w in waves]
+    log(f"[phase4] ({name}) {len(waves)} waves, n_pad {n_pad}: "
+        + ", ".join(f"{s[:-2]} {v:.1f}s" for s, v in stages.items())
+        + f"; syncs full {modes.count('full')} delta {modes.count('delta')}; "
+        f"hop_dist_inline launches {sum(w['hop_dist_inline'] for w in waves)}")
+    return stages
+
+
+def profile_wave(idx, x, dev) -> dict:
+    """Where one full wave's device step spends its time: the step (search +
+    select of 16384 nodes against the finished graph's split-tier state) is
+    timed on the host clock, then run once under torch.profiler for the
+    device time by kernel. The device-busy share is the kernels' summed
+    device time over the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnsw_tpu_torch.models.bulk_build import wave_device_step
+
+    serve_budget = idx.unified_max_bytes
+    st = idx.rebuild_device_tables(0)  # the waves' budget: the split tier
+    idx.unified_max_bytes = serve_budget
+    if st.tier != "split":
+        fail(f"(h) a unified budget of 0 gave tier {st.tier}, expected split")
+    q = torch.from_numpy(np.ascontiguousarray(x[-16384:])).to(dev)
+    kw = dict(m=M, ef_construction=EF_C, k_sel=64, space="l2")
+    wave_device_step(st, q, **kw)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wave_device_step(st, q, **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wave_device_step(st, q, **kw)
+        torch.cuda.synchronize()
+    # device rows are kernels: their sum is the device time. For the list,
+    # a PyTorch kernel is named by the operator that launched it (host rows
+    # carry their own kernels' device time), this package's by its own name
+    dev_ms, kernels = 0.0, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        on_device = e.device_type == torch.autograd.DeviceType.CUDA
+        if on_device:
+            dev_ms += us / 1e3
+        if us and (not on_device or "hop_dist" in e.key):
+            name = re.search(r"hop_dist\w*", e.key).group(0) if on_device else e.key
+            kernels[name] = kernels.get(name, 0.0) + us / 1e3
+    if dev_ms <= 0:
+        log("[phase4] (h) wave profile: the profiler saw no device time: not measured")
+        return {"wall_ms": wall_ms}
+    log(f"[phase4] (h) one 16384-wave's device step: wall {wall_ms:.0f} ms unprofiled, device "
+        f"time {dev_ms:.0f} ms (busy share {dev_ms / wall_ms:.2f}), by operator:")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[phase4]     {ms:8.1f} ms {ms / dev_ms:6.1%}  {name[:60]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms}
+
+
+def phase4(dev, launches, p2) -> dict:
+    import torch
+
+    from hnsw_tpu_torch import BruteforceIndex, L2Space, SearchParams, bulk_build
+    from hnsw_tpu_torch.core.graph import check_integrity, round_up
+    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
+
+    out = {}
+
+    def build(name, x):
+        """bulk_build with the counts set to 0 just before and read just
+        after; the split kernel's launches go to the kernels line."""
+        torch.cuda.synchronize()
+        COUNTS.reset()
+        t0 = time.time()
+        idx = bulk_build(x, space="l2", m=M, ef_construction=EF_C, verbose=True, device=dev)
+        secs = time.time() - t0
+        if COUNTS.plain_on_cuda:
+            fail(f"({name}) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
+        if COUNTS.hop_dist_inline == 0:
+            fail(f"({name}) hop_dist_inline was never launched")
+        launches["hop_dist_inline"] += COUNTS.hop_dist_inline
+        stages = check_waves(name, idx, round_up(len(x) + 1, 128))
+        log(f"[phase4] ({name}) bulk_build N={len(x)} d={DIM} M={M} efC={EF_C}: {secs:.1f}s "
+            f"({len(x) / secs:.0f} inserts/s)")
+        out[name] = {"build_s": secs, **stages, "waves": len(idx.wave_log)}
+        return idx
+
+    # (g) phase 2's dataset: the bulk-built graph against the host-built one
+    x, q, gt = p2["data"]
+    idx = build("g", x)
+    check_integrity(idx.graph, require_inbound=False)
+    if idx.rebuild_device_tables().tier != "unified":  # the waves' tier was split
+        fail(f"(g) the finished index serves tier {idx._device.tier}, expected unified")
+    _, lab_g, qps_g, c_g = run_mode(idx, "g", q, 2, launches, k=K, ef=200)
+    need_launch("g", c_g, "hop_dist_unified")
+    out["g"]["recall"] = rec = recall(lab_g, gt)
+    host = p2["recall"]["b"]
+    log(f"[phase4] (g) graph integrity ok; recall@10 at ef=200, 1024 queries: {rec:.4f} "
+        f"(host-built graph {host:.4f}), {qps_g:.0f} qps on the {idx._device.tier} tier")
+    if rec < 0.95 or rec < host - 0.02:
+        fail(f"(g) recall {rec} below 0.95 or more than 0.02 under the host-built {host}")
+    del idx, x
+    torch.cuda.empty_cache()
+
+    # (h) N=1M, the reference's 1M sweep data (seed 7, 4096 centers); 62k
+    # upper nodes, so the upper hierarchy is itself bulk-built
+    rng = np.random.default_rng(7)
+    x = make_dataset(N_BULK, DIM, rng, n_clusters=4096)
+    q = x[rng.integers(0, N_BULK, NQ_TIERS)] + 0.05 * rng.normal(
+        size=(NQ_TIERS, DIM)).astype(np.float32)
+    idx = build("h", x)
+    out["h"]["wave_profile"] = profile_wave(idx, x, dev)
+    oracle = BruteforceIndex(L2Space(DIM), device=dev)
+    oracle.add_items(x, np.arange(N_BULK))
+    _, gt = oracle.search_knn(q, K)
+    del oracle
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    st = idx.rebuild_device_tables()
+    torch.cuda.synchronize()
+    log(f"[phase4] (h) rebuild_device_tables: {st.tier} table {st.unified.nbytes / 1e9:.3f} GB, "
+        f"{time.time() - t0:.1f}s")
+    if st.tier != "unified":
+        fail(f"(h) the finished index serves tier {st.tier}, expected unified")
+    del st
+    params = SearchParams(k=K, ef=200, entry_seeds=4)
+    _, lab_h, qps_h, c_h = run_mode(idx, "h", q, 2, launches, params=params)
+    need_launch("h", c_h, "hop_dist_unified")
+    out["h"]["recall"] = rec = recall(lab_h, gt)
+    log(f"[phase4] (h) recall@10 at ef=200, 4 seeds, {NQ_TIERS} queries: {rec:.4f}, "
+        f"{qps_h:.0f} qps")
+    if rec < 0.95:
+        fail(f"(h) recall {rec} < 0.95")
+
+    # 1000 inserts into the finished index: a row delta, found at rank 1
+    extra = x[rng.integers(0, N_BULK, 1000)] + 0.3 * rng.normal(
+        size=(1000, DIM)).astype(np.float32)
+    t0 = time.time()
+    idx.add_items(extra, np.arange(N_BULK, N_BULK + 1000))
+    t_add = time.time() - t0
+    COUNTS.reset()
+    t0 = time.time()
+    _, lab_x = idx.search(extra, params=params)
+    t_search = time.time() - t0
+    found = float(np.mean(lab_x[:, 0] == np.arange(N_BULK, N_BULK + 1000)))
+    log(f"[phase4] (h) 1000 inserts {t_add:.2f}s; sync {idx._last_sync_mode} + search "
+        f"{t_search:.2f}s; found at rank 1: {found:.4f}")
+    if idx._last_sync_mode != "delta":
+        fail(f"(h) inserts synced as {idx._last_sync_mode}: {idx._last_sync_refusal}")
+    if COUNTS.plain_on_cuda or found < 0.99:
+        fail(f"(h) inserted vectors found at rank 1: {found}; plain_on_cuda "
+             f"{COUNTS.plain_on_cuda}")
+    out["h"]["inserts_found"] = found
+    return out
+
 
 def main() -> int:
     try:
@@ -542,17 +786,21 @@ def main() -> int:
     t_start = time.time()
     k1 = phase1(dev)
     launches = {"hop_dist_unified": 0, "hop_dist_unified8": 0, "hop_dist_unified4": 0,
-                "gather_dist_rows": 0, "gather_dist_bf16": 0}
+                "gather_dist_rows": 0, "gather_dist_bf16": 0, "hop_dist_inline": 0}
     p2 = phase2(dev, launches)
     p3 = phase3(dev, launches)
+    torch.cuda.empty_cache()  # phase 3's index is gone: phase 4 gets the card
+    p4 = phase4(dev, launches, p2)
     log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"], "tiers": p3,
-                                "seconds": time.time() - t_start, "device": smi}}))
+                                "bulk_build": p4, "seconds": time.time() - t_start,
+                                "device": smi}}))
     rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
         ("hop_dist_unified", "hop_bf16", "hop_dist_unified.cu", "pallas_gather.py:795"),
         ("gather_dist_rows", "gather_f32", "gather_dist.cu", "pallas_gather.py:1051"),
         ("hop_dist_unified8", "hop_int8", "hop_dist_quant.cu", "pallas_gather.py:795"),
         ("hop_dist_unified4", "hop_int4", "hop_dist_quant.cu", "pallas_gather.py:795"),
         ("gather_dist_bf16", "gather_bf16", "gather_dist_bf16.cu", "pallas_gather.py:1026"),
+        ("hop_dist_inline", "hop_inline", "hop_dist_inline.cu", "pallas_gather.py:214"),
     ]
     kernels = []
     for counter, key, src, tpu in rows:

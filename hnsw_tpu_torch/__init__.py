@@ -8,10 +8,11 @@ The JAX package ``hnsw_tpu`` stays the reference; this package imports
   ctypes;
 - ``io``: the reference's .npz checkpoint format;
 - ``ops``: distances, top-k, the unified node-block tables of the bf16,
-  int8 and int4 tiers with their hand-written CUDA kernels
-  (``ops.gather_kernels``, sources in ``csrc/``), and the batched beam
-  traversal;
-- ``models``: the exact bruteforce oracle and HNSWIndex;
+  int8 and int4 tiers and the split table with their hand-written CUDA
+  kernels (``ops.gather_kernels``, sources in ``csrc/``), and the batched
+  beam traversal;
+- ``models``: the exact bruteforce oracle, HNSWIndex (with its row-delta
+  device sync) and the device-wave ``bulk_build``;
 - ``convert``: numpy-only conversion of the JAX package's state.
 """
 
@@ -25,6 +26,7 @@ from hnsw_tpu_torch.core.spaces import (
     get_space,
 )
 from hnsw_tpu_torch.models.bruteforce import BruteforceIndex
+from hnsw_tpu_torch.models.bulk_build import bulk_build
 from hnsw_tpu_torch.models.hnsw import HNSWIndex, SearchParams
 
 __all__ = [
@@ -39,4 +41,5 @@ __all__ = [
     "BruteforceIndex",
     "HNSWIndex",
     "SearchParams",
+    "bulk_build",
 ]

@@ -8,6 +8,8 @@
   `unified4_from_jax_rows` decode the JAX unified node-block tables
   (``[R*s_data, 128]`` int32: bf16, int8 and int4 rows of
   hnsw_tpu/ops/pallas_gather.py) into the port's layouts.
+- `split_from_jax` decodes the JAX split tier (the lane-padded neighbor
+  vectors and the tiled adjacency) into the port's table and level0.
 """
 
 from __future__ import annotations
@@ -102,3 +104,23 @@ def unified4_from_jax_rows(rows_int32: np.ndarray, m0: int, d: int) -> Unified4T
 
     codes, scales, payload = _quant_table(rows_int32, sv4, m0, d, codes_flat)
     return Unified4Table(pack_int4(codes), scales, payload)
+
+
+def split_from_jax(
+    nbr_vectors: np.ndarray, level0_tiles: np.ndarray, m0: int, d: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode the JAX split tier into the port's (nbr_vectors [N_pad, m0,
+    d_pad] bf16, level0 [N_pad, m0] int32).
+
+    `nbr_vectors` is the JAX table [N_pad, m0, d_pad_j] as bf16 BITS (a
+    uint16 or int16 view; numpy has no bf16), lanes padded to 128: the pad
+    lanes past d rounded up to 8 are dropped. `level0_tiles` [T, 8, 128]
+    int32 is the inverse of make_level0_tiles: node n's ids live in tile
+    n // 32, sublane (n % 32) // 4, lanes (n % 4) * 32 onward, which is row n
+    of the tiles read as [T * 32, 32]."""
+    bits = np.asarray(nbr_vectors).view(np.int16)
+    n_pad = bits.shape[0]
+    vecs = bits[:, :, : round_up(d, 8)].copy()
+    rows = np.asarray(level0_tiles, dtype=np.int32).reshape(-1, 32)
+    level0 = rows[:n_pad, :m0].copy()
+    return (torch.from_numpy(vecs).view(torch.bfloat16), torch.from_numpy(level0))

@@ -3,8 +3,14 @@ traversal (counterpart of hnsw_tpu/models/hnsw.py).
 
 Construction runs on the native C++ engine; a search syncs the graph to the
 device (padded-CSR tensors, the vector table in the space's storage dtype,
-and the unified node-block tables of the largest tier that fits: bf16, int8
-or int4) and runs the batched beam there. A dirty index resyncs in full.
+and the tables of the largest tier that fits: the unified bf16, int8 or
+int4 node blocks, or the split table) and runs the batched beam there. A
+mutation after the first sync is applied to the live tensors as row deltas
+(appended and updated vectors, changed level-0 rows and the table rows that
+embed them); growth past the padded capacity resyncs in full.
+
+The row deltas write the device tensors in place: a caller that kept the
+state of an earlier sync sees its tensors change.
 """
 
 from __future__ import annotations
@@ -19,17 +25,89 @@ from hnsw_tpu_torch.core.graph import (
     graph_device_arrays,
     pad_vectors,
     round_up,
+    upper_host_arrays,
 )
 from hnsw_tpu_torch.core.spaces import Space, get_space
 from hnsw_tpu_torch.models.bruteforce import resolve_device
 from hnsw_tpu_torch.native.hnsw_builder import NativeHNSWBuilder
-from hnsw_tpu_torch.ops.gather_kernels import build_inline_tables, gather_dist_rows
+from hnsw_tpu_torch.ops.gather_kernels import (
+    build_inline_tables,
+    gather_dist_rows,
+    inline_rows,
+    make_upper_tables,
+    quant_rows,
+    quantize_for_tier,
+    upper_level_sizes_u,
+)
 from hnsw_tpu_torch.ops.topk import bruteforce_topk, topk_smallest
 from hnsw_tpu_torch.ops.traversal import SearchResults, search_batch
 
 # Share of the card's free memory the unified tables may take; the rest is
 # left for the search's working set ([B, ef] beams, [B, EM, ef] dedup masks).
 UNIFIED_FREE_SHARE = 0.8
+# Bulk-build waves clamp the unified budget to this, so they run the split
+# tier: its row delta is one bf16 row gather and scatter.
+UNIFIED_WAVE_MAX_BYTES = 0
+# Row deltas are applied in slices of this many dirty rows (a bulk-build wave
+# dirties 100k+ rows), which bounds the gathered rows held at once.
+DELTA_CHUNK = 1 << 15
+
+
+def _bucket(k: int) -> int:
+    """A delta size rounded up to a power of two (at least 256); the slack is
+    filled with writes to the sentinel row. Deltas of every size then take
+    transient buffers of a few sizes, which the caching allocator reuses."""
+    if k <= 0:
+        return 0
+    return max(256, 1 << (k - 1).bit_length())
+
+
+def _apply_row_deltas(
+    st: "_DeviceState",
+    new_vecs: torch.Tensor,  # [Nb, D] f32 appended or updated vectors
+    new_ids: torch.Tensor,  # [Nb] int32 destination rows (sentinel-padded)
+    dirty_ids: torch.Tensor,  # [Kb] int32 (sentinel-padded)
+    dirty_rows: torch.Tensor,  # [Kb, m0_pad] int32 (sentinel-padded)
+    *,
+    exact_i8: bool = False,  # unified8 codes are l2u8's lossless scale-1 codes
+) -> None:
+    """Apply insert and update deltas to the device state IN PLACE: write the
+    new vectors (with their squared norms and, on the quantized tiers, codes
+    and scales), scatter the changed level-0 rows, and rewrite the rows of
+    the tier's table that embed them (kind "off", "split", "unified",
+    "unified8" or "unified4"). The sentinel row n_pad-1 absorbs the padding
+    writes: it stays all-sentinel links, a zero vector and a zero norm.
+
+    Squared norms and codes are taken from the STORED values (bf16-rounded
+    under bf16 storage), as a full sync takes them, so a delta state equals
+    a rebuild; the JAX package's delta takes them from the f32 input."""
+    kind = st.tier or "off"
+    x = st.vectors
+    if new_vecs.shape[0]:
+        ni = new_ids.long()
+        stored = new_vecs.to(x.dtype)
+        x[ni] = stored
+        stored = stored.float()
+        if st.sq_norms is not None:
+            st.sq_norms[ni] = (stored * stored).sum(-1)
+        if kind in ("unified8", "unified4"):
+            st.codes[ni], st.scales[ni] = quantize_for_tier(stored, kind, exact_i8)
+    if dirty_ids.shape[0]:
+        di = dirty_ids.long()
+        st.graph.level0[di] = dirty_rows
+        if kind == "split":
+            st.nbr_vectors[di] = inline_rows(x, dirty_rows)
+        elif kind != "off":
+            # the payload may share level0's storage: writing both is right
+            # either way
+            table = st.unified
+            table.payload[di] = dirty_rows
+            if kind == "unified":
+                table.vecs[di] = inline_rows(x, dirty_rows)
+            else:
+                table.codes[di], table.scales[di] = quant_rows(
+                    kind, st.codes, st.scales, dirty_rows
+                )
 
 
 def _rescore_topk(q, x, ids, dists, *, k, m, space):
@@ -106,9 +184,23 @@ class _DeviceState:
     sq_norms: torch.Tensor | None  # [N_pad] f32 of the stored values (l2)
     deleted: np.ndarray  # [N_pad] bool, host
     labels: np.ndarray  # [N_pad] int64, host (-1 = padding)
-    tier: str | None  # "unified" | "unified8" | "unified4" | None (gathers)
+    tier: str | None  # "unified" | "unified8" | "unified4" | "split" | None (gathers)
     unified: object  # UnifiedTable | Unified8Table | Unified4Table | None
-    upper_tables: tuple | None  # bf16 descent tables on every tier
+    upper_tables: tuple | None  # bf16 descent tables of the unified tiers
+    nbr_vectors: torch.Tensor | None = None  # the split tier's table
+    # side tables of the quantized tiers, read by the row deltas
+    codes: torch.Tensor | None = None  # [N_pad, d_pad] int8
+    scales: torch.Tensor | None = None  # [N_pad] f32
+
+
+def inline_search_kwargs(st: _DeviceState) -> dict:
+    """search_batch's table arguments for a device state. The split tier
+    passes no upper tables: its descent goes through row gathers."""
+    if st.tier is None:
+        return {}
+    if st.tier == "split":
+        return {"nbr_vectors": st.nbr_vectors}
+    return {"unified_table": st.unified, "upper_tables": st.upper_tables}
 
 
 class HNSWIndex:
@@ -153,12 +245,25 @@ class HNSWIndex:
             inline_neighbors = True
         self.inline_neighbors = bool(inline_neighbors) and 2 * m <= 128
         # None: UNIFIED_FREE_SHARE of the card's free memory (no limit on
-        # the CPU); the ladder picks bf16, else int8, else int4
+        # the CPU); the ladder picks bf16, else int8, else int4, else the
+        # split table under split_max_bytes (None: the same share)
         self.unified_max_bytes: int | None = None
+        self.split_max_bytes: int | None = None
+        # False drops the per-level descent tables (the search then descends
+        # through row gathers)
+        self.upper_inline = True
+        # False drops the quantized tiers' codes and scales side tables after
+        # the table is built (a serve-only index); a mutation then resyncs
+        # in full
+        self.keep_delta_tables = True
         self._device: _DeviceState | None = None
         self._landmark_cache = None
         self._dirty = True
         self._dirty_deleted = False
+        self._synced_n = 0
+        self._last_sync_mode: str | None = None
+        # why the last dirty sync was not a delta (None when it was)
+        self._last_sync_refusal: str | None = None
 
     # -- construction --------------------------------------------------------
 
@@ -206,6 +311,34 @@ class HNSWIndex:
     def num_elements(self) -> int:
         return self._builder.size
 
+    @property
+    def deleted_count(self) -> int:
+        """getDeletedCount analog (hnswalg.h:221-223)."""
+        return self._builder.num_deleted
+
+    @property
+    def max_elements(self) -> int:
+        """getMaxElements analog (hnswalg.h:213-215): allocated slot
+        capacity. Unlike hnswlib this index grows past it."""
+        return self._builder.capacity
+
+    @property
+    def index_file_size(self) -> int:
+        """indexFileSize analog (hnswalg.h:658-683): byte size of the hnswlib
+        binary save of an equivalent index (a capacity-planning figure, not
+        the size of `save()`'s .npz)."""
+        return self._builder.index_file_size
+
+    def clear(self) -> None:
+        """clear() analog (hnswalg.h:149-161): drop all index content and
+        device state, keeping the configuration; the index stays usable."""
+        self._builder.clear()
+        self._device = None
+        self._landmark_cache = None
+        self._dirty = True
+        self._dirty_deleted = False
+        self._synced_n = 0
+
     def get_items(self, labels) -> np.ndarray:
         """Stored vectors for external labels (getDataByLabel analog);
         KeyError for an absent or delete-marked label."""
@@ -221,24 +354,44 @@ class HNSWIndex:
     # -- device state --------------------------------------------------------
 
     def _sync_device(self) -> _DeviceState:
-        """Bring the device state up to date. Any graph or vector change
-        resyncs in full (the incremental row-delta sync is not ported yet:
-        same answers, higher cost); delete-marks refresh only the host mask."""
-        if self._device is None or self._dirty:
+        """Bring the device state up to date: a full sync the first time and
+        when the row deltas refuse, else row deltas; delete-marks alone
+        refresh only the host mask. `_last_sync_mode` names what ran."""
+        self._last_sync_refusal = None
+        if self._device is None:
             self._full_sync()
+            self._last_sync_mode = "full"
+        elif self._dirty:
+            if self._try_incremental_sync():
+                self._refresh_deleted()
+                self._last_sync_mode = "delta"
+            else:
+                self._full_sync()
+                self._last_sync_mode = "full"
         elif self._dirty_deleted:
             self._refresh_deleted()
+            self._last_sync_mode = "deleted"
+        else:
+            self._last_sync_mode = "clean"
         self._dirty = False
         self._dirty_deleted = False
         return self._device
 
-    def _unified_budget(self) -> int | None:
-        if self.unified_max_bytes is not None:
-            return self.unified_max_bytes
+    def _free_share(self) -> int | None:
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
             return int(free * UNIFIED_FREE_SHARE)
         return None
+
+    def _unified_budget(self) -> int | None:
+        if self.unified_max_bytes is not None:
+            return self.unified_max_bytes
+        return self._free_share()
+
+    def _split_budget(self) -> int | None:
+        if self.split_max_bytes is not None:
+            return self.split_max_bytes
+        return self._free_share()
 
     def _full_sync(self) -> None:
         """Rebuild every device tensor from the host engine. The previous
@@ -260,19 +413,152 @@ class HNSWIndex:
             x32 = x.float()
             sq = (x32 * x32).sum(-1)
             del x32
-        tier = table = upper = None
+        tier = table = upper = nbr_vectors = codes = scales = None
         if self.inline_neighbors:
-            tier, table, upper = build_inline_tables(
-                x, dg, self.dim, self._unified_budget(), exact_i8=self.space.exact_i8
+            tier, table, upper, codes, scales = build_inline_tables(
+                x, dg, self.dim, self._unified_budget(), self._split_budget(),
+                upper_inline=self.upper_inline, exact_i8=self.space.exact_i8,
+                keep_delta_tables=self.keep_delta_tables,
             )
+            if tier == "split":
+                table, nbr_vectors = None, table
         deleted = np.zeros(n_pad, dtype=bool)
         deleted[:n] = self._builder.export_deleted().astype(bool)
         labels_np = np.full(n_pad, -1, dtype=np.int64)
         labels_np[:n] = g.labels
         self._device = _DeviceState(
-            dg, x, sq, deleted, labels_np, tier, table, upper or None
+            dg, x, sq, deleted, labels_np, tier, table, upper or None,
+            nbr_vectors, codes, scales,
         )
         self._builder.clear_dirty()
+        self._synced_n = n
+
+    def _try_incremental_sync(self) -> bool:
+        """Apply insert and in-place-update deltas (changed level-0 rows,
+        appended and updated vector rows) to the live device tensors. An
+        update's staleness is local: the only device rows that embed the old
+        vector are its level-0 in-neighbors' table rows (the native engine's
+        flush_updates finds them) and the small upper tables (rebuilt
+        wholesale when the upper levels changed). Returns False, and says
+        why in `_last_sync_refusal`, when a full sync is needed instead."""
+
+        def refuse(why: str) -> bool:
+            self._last_sync_refusal = why
+            return False
+
+        b = self._builder
+        flags = b.dirty_flags
+        if flags & 2:
+            return refuse("the native engine asks for a full resync")
+        st = self._device
+        if st.tier in ("unified8", "unified4") and st.codes is None:
+            return refuse("side tables dropped (keep_delta_tables=False)")
+        dg = st.graph
+        n_pad = dg.n_pad
+        sent = n_pad - 1
+        n = b.size
+        old_n = self._synced_n
+        if n + 1 > n_pad:
+            return refuse("growth past the padded capacity")
+        n_new = n - old_n
+        n_upd = b.flush_updates()  # must precede take_dirty
+        vec_ids = b.take_vec_dirty(n_upd)
+        nb = _bucket(n_new + n_upd)
+        dirty_ids = b.take_dirty()
+        k = dirty_ids.shape[0]
+        if k == 0 and n_new == 0 and n_upd == 0 and not (flags & 1):
+            return True
+        m0_pad = dg.level0.shape[1]
+        rows = b.export_level0_rows(dirty_ids)
+        rows = np.where(rows < 0, sent, rows).astype(np.int32)
+        if rows.shape[1] != m0_pad:
+            rows = np.concatenate(
+                [rows, np.full((k, m0_pad - rows.shape[1]), sent, np.int32)], axis=1
+            )
+        if k > n_pad // 2:
+            # refreshing k*m0 table rows would cost more than rebuilding the
+            # table
+            return refuse("more than n_pad // 2 dirty rows")
+        new_vecs = np.zeros((nb, self.dim), np.float32)
+        new_ids = np.full(nb, sent, np.int32)
+        if n_new:
+            new_vecs[:n_new] = b.export_vectors_range(old_n, n_new)
+            new_ids[:n_new] = np.arange(old_n, n, dtype=np.int32)
+        if n_upd:
+            # in-place updates ride the same scatter as appended rows
+            new_vecs[n_new : n_new + n_upd] = b.export_vectors_rows(vec_ids)
+            new_ids[n_new : n_new + n_upd] = vec_ids
+
+        dev = self.device
+        # bounded slices, each a sentinel-padded power-of-two bucket; the new
+        # vectors ride the first
+        for si, s0 in enumerate(range(0, k, DELTA_CHUNK) or [0]):
+            ids_c = dirty_ids[s0 : s0 + DELTA_CHUNK]
+            rows_c = rows[s0 : s0 + DELTA_CHUNK]
+            kc = ids_c.shape[0]
+            kb = _bucket(kc)
+            if kb != kc:
+                ids_c = np.concatenate([ids_c, np.full(kb - kc, sent, np.int32)])
+                rows_c = np.concatenate(
+                    [rows_c, np.full((kb - kc, m0_pad), sent, np.int32)]
+                )
+            first = si == 0
+            _apply_row_deltas(
+                st,
+                torch.from_numpy(new_vecs if first else new_vecs[:0]).to(dev),
+                torch.from_numpy(new_ids if first else new_ids[:0]).to(dev),
+                torch.from_numpy(ids_c).to(dev),
+                torch.from_numpy(rows_c).to(dev),
+                exact_i8=self.space.exact_i8,
+            )
+
+        labels_np = st.labels
+        labels_changed = n_new > 0
+        if n_new:
+            labels_np = labels_np.copy()
+            labels_np[old_n:n] = b.export_labels_range(old_n, n_new)
+        if n_upd:
+            # a replace_deleted reuse changes the label at the updated slot
+            for i in vec_ids:
+                lab = b.export_labels_range(int(i), 1)[0]
+                if labels_np[i] != lab:
+                    if not labels_changed:
+                        labels_np = labels_np.copy()
+                        labels_changed = True
+                    labels_np[i] = lab
+        rep = {"num_nodes": n}
+        if flags & 1:
+            # upper levels or the entry point changed: re-derive the (small)
+            # upper arrays wholesale
+            g = b.export_graph()
+            upper, upper_slot = upper_host_arrays(g, n_pad)
+            rep.update(
+                upper=torch.from_numpy(upper).to(dev),
+                upper_slot=torch.from_numpy(upper_slot).to(dev),
+                entry_point=int(g.entry_point),
+            )
+        if labels_changed:
+            rep["labels"] = torch.from_numpy(labels_np).to(dev)
+        dg = dataclasses.replace(dg, **rep)
+        upper_tables = st.upper_tables
+        if (
+            st.tier in ("unified", "unified8", "unified4")
+            and (flags & 1)
+            and dg.max_level > 0
+            and self.upper_inline
+        ):
+            # the upper tables embed upper adjacency and vectors: rebuild
+            # them (~N/M rows) after both were updated
+            sizes = upper_level_sizes_u(dg.upper_slot, dg.upper.shape[1])
+            upper_tables = make_upper_tables(
+                st.vectors, dg.upper, dg.upper_slot, level_sizes=sizes
+            )
+        self._device = dataclasses.replace(
+            st, graph=dg, labels=labels_np, upper_tables=upper_tables
+        )
+        self._landmark_cache = None  # keyed on the old state's identity
+        self._synced_n = n
+        return True
 
     def rebuild_device_tables(self, unified_max_bytes: int | None = None) -> _DeviceState:
         """Drop and rebuild every device tensor, optionally with a new table
@@ -375,8 +661,7 @@ class HNSWIndex:
             entry_ids=None if entry_ids is None else torch.from_numpy(
                 np.asarray(entry_ids).astype(np.int32)
             ).to(self.device),
-            unified_table=st.unified,
-            upper_tables=st.upper_tables,
+            **inline_search_kwargs(st),
             expand=params.expand,
             max_iters=params.max_iters,
             collect_metrics=params.collect_metrics,

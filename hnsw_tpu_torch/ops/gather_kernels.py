@@ -1,5 +1,5 @@
-"""Node-block tables and the CUDA kernels of the query path (counterpart of
-hnsw_tpu/ops/pallas_gather.py).
+"""Node-block tables and the CUDA kernels of the query and bulk-build paths
+(counterpart of hnsw_tpu/ops/pallas_gather.py).
 
 - The unified node-block tables: for every node, its m0 level-0 neighbors'
   vectors and their ids, so one expansion reads one contiguous block. The
@@ -10,10 +10,16 @@ hnsw_tpu/ops/pallas_gather.py).
   neighbor's f32 scale) and ``Unified4Table`` (4-bit codes, two per byte).
   The upper-level descent tables are bf16 on every tier, with neighbor
   *slots* as the payload.
-- ``build_inline_tables``: the tier ladder (bf16, else int8, else int4).
+- The split tier, the bulk-build waves' table: ``make_inline_neighbors``
+  gives one bf16 tensor ``[N_pad, m0, d_pad]`` of neighbor vectors; the
+  ids are read from the graph's own ``level0``, so a row delta written to
+  ``level0`` is at once what the hop sees.
+- ``build_inline_tables``: the tier ladder (bf16, else int8, else int4,
+  else split).
 - ``hop_dist_unified``: distances from each query to the neighbors of its
   chosen nodes, read from a unified table of any tier
   (csrc/hop_dist_unified.cu, csrc/hop_dist_quant.cu).
+- ``hop_dist_inline``: the same on the split tier (csrc/hop_dist_inline.cu).
 - ``gather_dist_rows``: distances from each query to K rows of the f32 or
   bf16 vector table, the exact rescore (csrc/gather_dist.cu,
   csrc/gather_dist_bf16.cu).
@@ -44,6 +50,7 @@ class KernelCounts:
     hop_dist_unified: int = 0  # bf16 rows
     hop_dist_unified8: int = 0
     hop_dist_unified4: int = 0
+    hop_dist_inline: int = 0  # the split tier
     gather_dist_rows: int = 0  # f32 table
     gather_dist_bf16: int = 0
     plain_on_cuda: int = 0
@@ -147,16 +154,16 @@ class Unified4Table:
 def tier_bytes(n_pad: int, m0: int, d: int) -> dict[str, int]:
     """Device bytes of each tier's level-0 table over n_pad node blocks of
     m0 neighbors, the budget the ladder holds each tier to. The int8 and int4
-    tiers also count [n_pad, d_pad] codes and [n_pad] scales side tables, as
-    the JAX ladder does, so a shape picks the same rung in both packages;
-    the JAX package keeps those for its row-delta sync, which is not ported,
-    so the port builds the table and drops them."""
+    tiers also count the [n_pad, d_pad] codes and [n_pad] scales side tables
+    that the row-delta sync re-packs dirty rows from. The split tier is the
+    neighbor vectors alone: its ids are the graph's level0."""
     d_pad = round_up(d, 8)
     side = n_pad * d_pad + 4 * n_pad
     return {
         "unified": n_pad * m0 * (2 * d_pad + 4),
         "unified8": n_pad * m0 * (d_pad + 8) + side,
         "unified4": n_pad * m0 * (d_pad // 2 + 8) + side,
+        "split": n_pad * m0 * 2 * d_pad,
     }
 
 
@@ -194,8 +201,33 @@ def make_unified_table_chunked(
     sentinel-remapped [N_pad, m0] adjacency: row n holds the neighbors of
     node n. Built in row chunks so peak memory is the table plus the bf16
     copy of the vectors."""
-    xb = _bf16_padded(vectors)
-    return UnifiedTable(_gather_blocks(xb, level0, chunk), level0.contiguous())
+    return UnifiedTable(
+        make_inline_neighbors_chunked(vectors, level0, chunk), level0.contiguous()
+    )
+
+
+def make_inline_neighbors_chunked(
+    vectors: torch.Tensor, level0: torch.Tensor, chunk: int = 1 << 14
+) -> torch.Tensor:
+    """The split tier's table [N_pad, m0, d_pad] bf16: row n holds the
+    vectors of node n's level-0 neighbors, cast to bf16 before the gather and
+    written chunk by chunk (pallas_gather.make_inline_neighbors_chunked; d
+    is padded to 8 here, not to the TPU's 128 lanes)."""
+    return _gather_blocks(_bf16_padded(vectors), level0, chunk)
+
+
+def inline_rows(vectors: torch.Tensor, nbrs: torch.Tensor) -> torch.Tensor:
+    """[K, m] neighbor ids -> their vectors [K, m, d_pad] bf16: the rows of
+    the split table, or of a bf16 unified table, that a row delta rewrites
+    (gathered, then rounded: the same values as rounding the table first)."""
+    k, m = nbrs.shape
+    rows = vectors[nbrs.reshape(-1).long()].to(torch.bfloat16)
+    return _pad_lanes(rows).view(k, m, -1)
+
+
+def make_inline_neighbors(vectors: torch.Tensor, level0: torch.Tensor) -> torch.Tensor:
+    """make_inline_neighbors_chunked in one gather (small tables)."""
+    return make_inline_neighbors_chunked(vectors, level0, max(1, level0.shape[0]))
 
 
 # Per-vector symmetric quantizers: the f32 arithmetic of the JAX package
@@ -244,28 +276,61 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return nib.reshape(*packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
 
 
+def quantize_for_tier(
+    vectors: torch.Tensor, tier: str, exact: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The side tables of a quantized tier: (codes [N, d_pad] int8 with zero
+    pad lanes, scales [N] f32). "unified4" keeps one code per byte here and
+    packs two per byte in the node blocks; `exact` picks the l2u8 space's
+    lossless scale-1 codes on "unified8"."""
+    if tier == "unified4":
+        quant = quantize_int4
+    else:
+        quant = quantize_exact_i8 if exact else quantize_int8
+    codes, scales = quant(vectors)
+    return _pad_lanes(codes), scales
+
+
+def quant_rows(tier: str, codes: torch.Tensor, scales: torch.Tensor,
+               nbrs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codes [K, m, W], scales [K, m]) of the neighbor blocks `nbrs` [K, m]
+    from a quantized tier's side tables: the rows of a Unified8Table (W =
+    d_pad) or Unified4Table (W = d_pad // 2) that a row delta rewrites."""
+    blocks = codes[nbrs.long()]
+    if tier == "unified4":
+        blocks = pack_int4(blocks)
+    return blocks, scales[nbrs.long()]
+
+
+def _quant_table(tier: str, codes: torch.Tensor, scales: torch.Tensor,
+                 level0: torch.Tensor, chunk: int):
+    """The whole level-0 table of a quantized tier from its side tables. The
+    int4 codes are packed before the gather, so no transient is larger than
+    the table."""
+    if tier == "unified4":
+        cls, codes = Unified4Table, pack_int4(codes)
+    else:
+        cls = Unified8Table
+    return cls(_gather_blocks(codes, level0, chunk), scales[level0.long()],
+               level0.contiguous())
+
+
 def make_unified8_table_chunked(
     vectors: torch.Tensor, level0: torch.Tensor, chunk: int = 1 << 14,
     exact: bool = False,
 ) -> Unified8Table:
     """Level-0 int8 table from per-vector codes and scales; `exact` uses the
     lossless scale-1 codes of the l2u8 space."""
-    codes, scales = (quantize_exact_i8 if exact else quantize_int8)(vectors)
-    return Unified8Table(
-        _gather_blocks(_pad_lanes(codes), level0, chunk), scales[level0.long()],
-        level0.contiguous(),
-    )
+    side = quantize_for_tier(vectors, "unified8", exact)
+    return _quant_table("unified8", *side, level0, chunk)
 
 
 def make_unified4_table_chunked(
     vectors: torch.Tensor, level0: torch.Tensor, chunk: int = 1 << 14
 ) -> Unified4Table:
     """Level-0 int4 table: codes in [-7, 7], two per byte, and scales."""
-    codes, scales = quantize_int4(vectors)
-    return Unified4Table(
-        _gather_blocks(pack_int4(_pad_lanes(codes)), level0, chunk),
-        scales[level0.long()], level0.contiguous(),
-    )
+    side = quantize_for_tier(vectors, "unified4")
+    return _quant_table("unified4", *side, level0, chunk)
 
 
 def upper_level_sizes_u(upper_slot: torch.Tensor, u_pad: int) -> tuple[int, ...]:
@@ -320,48 +385,80 @@ def make_upper_tables(
 class InlineTables(NamedTuple):
     """The serving tables of one tier (JAX's tagged tuple)."""
 
-    tier: str  # "unified" | "unified8" | "unified4"
-    table: UnifiedTable | Unified8Table | Unified4Table
+    tier: str  # "unified" | "unified8" | "unified4" | "split"
+    # UnifiedTable | Unified8Table | Unified4Table, or on the split tier the
+    # [N_pad, m0, d_pad] bf16 neighbor vectors (ids come from dg.level0)
+    table: object
     upper_tables: tuple  # ((bf16 UnifiedTable, slot_to_id), ...) per level
+    # side tables of the quantized tiers, read by the row-delta sync
+    codes: torch.Tensor | None = None  # [N_pad, d_pad] int8
+    scales: torch.Tensor | None = None  # [N_pad] f32
 
 
-def build_inline_tables(
-    x: torch.Tensor, dg, dim: int, budget: int | None, *, exact_i8: bool = False
-) -> InlineTables:
-    """The tier ladder (pallas_gather.build_inline_tables): the bf16 tables
-    if they fit `budget` bytes (None: no limit), else int8, else int4, each
-    counted by tier_bytes. JAX's shape conditions are kept, so a shape picks
-    the same rung in both packages. Below int4 the JAX package serves the
-    split tier, which the port has not yet: MemoryError."""
-    n_pad, m0 = dg.level0.shape
+def pick_tier(
+    n_pad: int, m0: int, dim: int, budget: int | None,
+    split_max_bytes: int | None = None,
+) -> str | None:
+    """The rung build_inline_tables takes for this shape: the bf16 tables if
+    they fit `budget` bytes (None: no limit), else int8, else int4, each
+    counted by tier_bytes, else the split table under `split_max_bytes`; None
+    when no rung applies. JAX's order and shape conditions
+    (pallas_gather.build_inline_tables) are kept, its TPU row's lane width
+    and 32-node id tile included, so a shape picks the same rung in both
+    packages."""
     d_pad_j = round_up(dim, 128)  # the TPU row's lane width
     need = tier_bytes(n_pad, m0, dim)
 
-    def fits(tier: str) -> bool:
-        return budget is None or need[tier] <= budget
+    def fits(tier: str, cap: int | None) -> bool:
+        return cap is None or need[tier] <= cap
 
-    def upper_tabs():
-        if dg.max_level == 0:
-            return ()
-        sizes = upper_level_sizes_u(dg.upper_slot, dg.upper.shape[1])
-        return make_upper_tables(x, dg.upper, dg.upper_slot, level_sizes=sizes)
+    if m0 <= 128 and fits("unified", budget):
+        return "unified"
+    if 2 * m0 <= 128 and m0 * d_pad_j % 512 == 0 and fits("unified8", budget):
+        return "unified8"
+    if 2 * m0 <= 128 and m0 * d_pad_j % 1024 == 0 and fits("unified4", budget):
+        return "unified4"
+    if m0 <= 32 and fits("split", split_max_bytes):
+        return "split"
+    return None
 
-    if m0 <= 128 and fits("unified"):
-        tier, table = "unified", make_unified_table_chunked(x, dg.level0)
-    elif 2 * m0 <= 128 and m0 * d_pad_j % 512 == 0 and fits("unified8"):
-        tier, table = "unified8", make_unified8_table_chunked(x, dg.level0, exact=exact_i8)
-    elif 2 * m0 <= 128 and m0 * d_pad_j % 1024 == 0 and fits("unified4"):
-        tier, table = "unified4", make_unified4_table_chunked(x, dg.level0)
-    else:
+
+def build_inline_tables(
+    x: torch.Tensor, dg, dim: int, budget: int | None,
+    split_max_bytes: int | None = None, *, upper_inline: bool = True,
+    exact_i8: bool = False, keep_delta_tables: bool = True,
+) -> InlineTables:
+    """Build the tables of the rung pick_tier names (the tier ladder,
+    pallas_gather.build_inline_tables). `upper_inline=False` skips the
+    per-level descent tables (the search then descends through row gathers);
+    `keep_delta_tables=False` drops the quantized tiers' side tables (a
+    serve-only index: a later mutation then resyncs in full). Where JAX
+    falls silently to XLA gathers below its last rung, this raises
+    MemoryError: plain gathers are served only on inline_neighbors=False."""
+    n_pad, m0 = dg.level0.shape
+    tier = pick_tier(n_pad, m0, dim, budget, split_max_bytes)
+    if tier is None:
+        need = tier_bytes(n_pad, m0, dim)
         raise MemoryError(
-            f"no unified tier fits the budget of {budget} bytes (bf16 "
+            f"no tier fits: unified budget {budget} bytes (bf16 "
             f"{need['unified']}, int8 {need['unified8']}, int4 "
-            f"{need['unified4']}): below int4 the JAX package serves the "
-            "split tier, not ported yet (ROADMAP.md queue 2, row 6: "
-            "hop_dist_inline); pass inline_neighbors=False to serve through "
-            "plain row gathers"
+            f"{need['unified4']}), split budget {split_max_bytes} bytes "
+            f"(split {need['split']}, m0 {m0}, at most 32); pass "
+            "inline_neighbors=False to serve through plain row gathers"
         )
-    return InlineTables(tier, table, upper_tabs())
+    if tier == "split":
+        return InlineTables(tier, make_inline_neighbors_chunked(x, dg.level0), ())
+    upper = ()
+    if upper_inline and dg.max_level > 0:
+        sizes = upper_level_sizes_u(dg.upper_slot, dg.upper.shape[1])
+        upper = make_upper_tables(x, dg.upper, dg.upper_slot, level_sizes=sizes)
+    if tier == "unified":
+        return InlineTables(tier, make_unified_table_chunked(x, dg.level0), upper)
+    codes, scales = quantize_for_tier(x, tier, exact_i8)
+    table = _quant_table(tier, codes, scales, dg.level0, 1 << 14)
+    if not keep_delta_tables:
+        codes = scales = None
+    return InlineTables(tier, table, upper, codes, scales)
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +567,92 @@ def hop_dist_unified(
         )
     check(rc, entry)
     setattr(COUNTS, counter, getattr(COUNTS, counter) + 1)
+    return out_d, out_i
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: the split-tier hop (bf16 neighbor vectors, ids from level0).
+# ---------------------------------------------------------------------------
+
+
+def hop_dist_inline_plain(
+    q: torch.Tensor, nbr_vectors: torch.Tensor, level0: torch.Tensor,
+    chosen: torch.Tensor, space: str = "l2",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the split hop kernel: (dists [B, E*m0] f32,
+    ids [B, E*m0] int32), what pallas_gather.hop_dist_inline followed by
+    extract_level0_ids gives."""
+    _check_space(space)
+    if q.is_cuda:
+        COUNTS.plain_on_cuda += 1
+    b, e = chosen.shape
+    m0, d_pad = nbr_vectors.shape[1:]
+    qp = F.pad(q.float(), (0, d_pad - q.shape[1]))[:, None, None, :]
+    idx = chosen.long()
+    rows = nbr_vectors[idx].float()  # [B, E, m0, d_pad]
+    if space == "ip":
+        d = 1.0 - (rows * qp).sum(-1)
+    else:
+        diff = rows - qp
+        d = (diff * diff).sum(-1)
+    return d.reshape(b, e * m0), level0[idx].reshape(b, e * m0)
+
+
+def hop_dist_inline(
+    q: torch.Tensor,  # [B, D] f32
+    nbr_vectors: torch.Tensor,  # [N_pad, m0, d_pad] bf16
+    level0: torch.Tensor,  # [N_pad, m0] int32, the graph's own adjacency
+    chosen: torch.Tensor,  # [B, E] int32 nodes to expand
+    space: str = "l2",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expand `chosen` nodes on the split tier: the m0 neighbor vectors of
+    each come from one contiguous block of `nbr_vectors`, their ids from the
+    node's row of `level0`. Returns (dists [B, E*m0] f32, ids [B, E*m0]
+    int32). Replaces pallas_gather.hop_dist_inline and extract_level0_ids
+    (the TPU kernel returns raw 32-node id tiles that XLA then picks from)."""
+    _check_space(space)
+    if q.dim() != 2 or chosen.dim() != 2 or chosen.shape[0] != q.shape[0]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} chosen {tuple(chosen.shape)}")
+    if nbr_vectors.dim() != 3 or level0.shape != nbr_vectors.shape[:2]:
+        raise ValueError(
+            f"bad shapes nbr_vectors {tuple(nbr_vectors.shape)} level0 {tuple(level0.shape)}"
+        )
+    if q.dtype != torch.float32 or chosen.dtype != torch.int32:
+        raise TypeError("hop_dist_inline takes f32 queries and int32 chosen ids")
+    if nbr_vectors.dtype != torch.bfloat16 or level0.dtype != torch.int32:
+        raise TypeError("hop_dist_inline takes bf16 nbr_vectors and int32 level0")
+    rows, m0, d_pad = nbr_vectors.shape
+    if q.shape[1] > d_pad:
+        raise ValueError(f"query width {q.shape[1]} > table width {d_pad}")
+    if q.device.type == "cpu":
+        return hop_dist_inline_plain(q, nbr_vectors, level0, chosen, space)
+    if not q.is_cuda:
+        raise ValueError(f"hop_dist_inline: unsupported device {q.device}")
+
+    from hnsw_tpu_torch.ops.cuda_lib import check, load_kernels
+
+    dev = q.device
+    if any(t.device != dev for t in (chosen, nbr_vectors, level0)):
+        raise ValueError("hop_dist_inline: tensors on different devices")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (nbr_vectors, level0)):
+        raise ValueError("hop_dist_inline: tables must be contiguous and 16-byte aligned")
+    if d_pad % 8 or d_pad * 4 > 48 * 1024:
+        raise ValueError(f"hop_dist_inline: unsupported d_pad {d_pad}")
+    b, e = chosen.shape
+    qp = F.pad(q, (0, d_pad - q.shape[1])).contiguous()
+    ch = chosen.contiguous()
+    out_d = torch.empty((b, e * m0), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, e * m0), dtype=torch.int32, device=dev)
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hop_dist_inline(
+            qp.data_ptr(), nbr_vectors.data_ptr(), level0.data_ptr(), ch.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
+            b, e, m0, d_pad, rows, int(space == "ip"), stream,
+        )
+    check(rc, "hop_dist_inline")
+    COUNTS.hop_dist_inline += 1
     return out_d, out_i
 
 

@@ -6,9 +6,9 @@ descent over the upper layers, then a heap-driven best-first beam over
 level 0. Here, as in the JAX package, it is a batched, fixed-shape, masked
 program: every query carries a sorted beam of `ef` entries (distance, id*2 +
 expanded flag); each iteration expands the `expand` best unexpanded entries
-through the unified hop kernel of the serving tier (bf16, int8 or int4: one
-contiguous block per expansion), drops
-candidates already in the beam or in a short ring history of expanded ids,
+through the hop kernel of the serving tier (the unified bf16, int8 or int4
+tables, or the split table of the bulk-build waves: one contiguous block
+per expansion), drops candidates already in the beam or in a short ring history of expanded ids,
 and merges the rest into the beam with a bitonic merge.
 
 Filtering and delete-marks are an `eligible` mask over node ids: ineligible
@@ -35,7 +35,11 @@ import torch
 
 from hnsw_tpu_torch.core.graph import DeviceGraph
 from hnsw_tpu_torch.ops.distance import gather_dist
-from hnsw_tpu_torch.ops.gather_kernels import UnifiedTable, hop_dist_unified
+from hnsw_tpu_torch.ops.gather_kernels import (
+    UnifiedTable,
+    hop_dist_inline,
+    hop_dist_unified,
+)
 
 _INF = float("inf")
 
@@ -200,6 +204,9 @@ def search_batch(
     # level-0 node blocks of any tier (UnifiedTable, Unified8Table or
     # Unified4Table): the hop kernel follows the table's type
     unified_table=None,
+    # the split tier's [N_pad, m0, d_pad] bf16 neighbor vectors (ids are
+    # read from graph.level0); used when there is no unified_table
+    nbr_vectors: torch.Tensor | None = None,
     upper_tables: tuple | None = None,  # ((table_l, slot_to_id_l), ...)
     expand: int = 1,
     max_iters: int = 0,  # 0 => 2*ef + 16
@@ -222,8 +229,8 @@ def search_batch(
       (0 => k; ef => hnswlib's own lower bound);
     - `stop_fn(StopView) -> [B] bool` is a custom stop condition.
 
-    Without `unified_table` the level-0 hop is a plain row gather from
-    `vectors` (the reference's XLA-gather path). `check_every` sets how
+    With neither `unified_table` nor `nbr_vectors` the level-0 hop is a
+    plain row gather from `vectors` (the reference's XLA-gather path). `check_every` sets how
     often the loop checks termination on the host (see the module note)."""
     if ef < k:
         raise ValueError("ef must be >= k")
@@ -293,7 +300,7 @@ def search_batch(
 
     return _beam_level0(
         q, graph, beam_d, beam_key, res_d, res_id, vectors, sq_norms,
-        eligible, unified_table, k=k, ef=ef, space=space, expand=expand,
+        eligible, unified_table, nbr_vectors, k=k, ef=ef, space=space, expand=expand,
         max_iters=max_iters, hist_len=hist_len,
         collect_metrics=collect_metrics, stop_patience=stop_patience,
         stop_frontier=stop_frontier, frontier_rank=frontier_rank,
@@ -336,7 +343,7 @@ def _descend(q, vectors, sq_norms, graph, upper_tables, cur, cur_d, space,
 
 def _beam_level0(
     q, graph, beam_d, beam_key, res_d, res_id, vectors, sq_norms, eligible,
-    unified_table, *, k, ef, space, expand, max_iters, hist_len,
+    unified_table, nbr_vectors, *, k, ef, space, expand, max_iters, hist_len,
     collect_metrics, stop_patience, stop_frontier, stop_fn, frontier_rank,
     check_every,
 ) -> SearchResults:
@@ -382,6 +389,8 @@ def _beam_level0(
 
             if unified_table is not None:
                 d, nbrs = hop_dist_unified(q, unified_table, chosen, space)
+            elif nbr_vectors is not None:
+                d, nbrs = hop_dist_inline(q, nbr_vectors, graph.level0, chosen, space)
             else:
                 nbrs = graph.level0[chosen.long()].reshape(b, em)
                 safe_n = torch.where(nbrs < n_pad, nbrs, sent)

@@ -119,11 +119,16 @@ def test_gather_path_and_search_cpu_agree_with_oracle(shared):
 
 
 def test_unified_budget_raises(shared):
-    """Below the int4 rung the JAX package serves the split tier, which the
-    port has not yet: the sync raises, it never falls back silently."""
+    """Below the int4 rung the split tier serves, under its own budget; below
+    that the sync raises, it never falls back silently."""
     t = _port(shared)
     t.unified_max_bytes = 1024
-    with pytest.raises(MemoryError, match="below int4.*ROADMAP.md queue 2, row 6"):
+    _, lab = t.search(shared["q"][:2], k=K)
+    assert t._device.tier == "split" and t._device.unified is None
+    assert t._device.nbr_vectors is not None and (lab >= 0).all()
+    t.split_max_bytes = 1024
+    t._device = None
+    with pytest.raises(MemoryError, match="no tier fits.*split budget 1024.*inline_neighbors"):
         t.search(shared["q"][:2], k=K)
     t.inline_neighbors = False  # the caller's explicit choice: plain gathers
     _, lab = t.search(shared["q"][:2], k=K)
@@ -133,7 +138,7 @@ def test_unified_budget_raises(shared):
 
 def test_add_point_builds_and_searches():
     """Serial inserts (add_point), search, then more inserts: the dirty
-    index resyncs in full."""
+    index resyncs (past its padded capacity, in full)."""
     rng = np.random.default_rng(6)
     x = rng.normal(size=(300, 8)).astype(np.float32)
     idx = HNSWIndex("cosine", dim=8, m=4, ef_construction=40, device="cpu")

@@ -121,12 +121,27 @@ def test_tier_ladder_picks_each_rung():
         assert len(tabs.upper_tables) == dg.max_level > 0
         assert all(type(t) is gk.UnifiedTable for t, _ in tabs.upper_tables)
         # the budget counts the [n_pad, d_pad] codes and [n_pad] scales side
-        # tables of the JAX ladder on the quantized tiers; none is held
-        side = 0 if tier == "unified" else dg.n_pad * (tgraph.round_up(d, 8) + 4)
-        assert tabs.table.nbytes + side == need[tier]
+        # tables of the quantized tiers, which the row-delta sync reads
+        if tier == "unified":
+            assert tabs.codes is None and tabs.scales is None
+            assert tabs.table.nbytes == need[tier]
+        else:
+            assert tabs.codes.shape == (dg.n_pad, tgraph.round_up(d, 8))
+            assert tabs.codes.dtype == torch.int8 and tabs.scales.shape == (dg.n_pad,)
+            assert tabs.table.nbytes + tabs.codes.nbytes + tabs.scales.nbytes == need[tier]
+            serve_only = gk.build_inline_tables(xp, dg, d, need[tier], keep_delta_tables=False)
+            assert serve_only.tier == tier and serve_only.codes is None
+            assert torch.equal(serve_only.table.codes, tabs.table.codes)
     assert gk.build_inline_tables(xp, dg, d, None).tier == "unified"
-    with pytest.raises(MemoryError, match="ROADMAP.md queue 2, row 6"):
-        gk.build_inline_tables(xp, dg, d, need["unified4"] - 1)
+    assert gk.build_inline_tables(xp, dg, d, None, upper_inline=False).upper_tables == ()
+    # below int4: the split rung, one bf16 table under its own budget, with
+    # no descent tables; below that MemoryError
+    tabs = gk.build_inline_tables(xp, dg, d, need["unified4"] - 1)
+    assert tabs.tier == "split" and tabs.upper_tables == () and tabs.codes is None
+    assert tabs.table.dtype == torch.bfloat16 and tabs.table.nbytes == need["split"]
+    assert gk.build_inline_tables(xp, dg, d, 0, need["split"]).tier == "split"
+    with pytest.raises(MemoryError, match="no tier fits.*inline_neighbors=False"):
+        gk.build_inline_tables(xp, dg, d, need["unified4"] - 1, need["split"] - 1)
     # JAX's ladder on the same graph picks the same rungs at its own budgets
     jdg = jgraph.graph_device_arrays(b.export_graph())
     d_j, m0 = 128, dg.level0.shape[1]
@@ -137,6 +152,9 @@ def test_tier_ladder_picks_each_rung():
         got = jpg.build_inline_tables(jnp.asarray(xp.numpy()), jdg, d, budget, 0,
                                       upper_inline=False)
         assert got[0] == tier
+    j_split = dg.n_pad * m0 * d_j * 2
+    assert jpg.build_inline_tables(jnp.asarray(xp.numpy()), jdg, d, 0, j_split)[0] == "split"
+    assert jpg.build_inline_tables(jnp.asarray(xp.numpy()), jdg, d, 0, j_split - 1) is None
 
 
 # ---------------------------------------------------------------------------
