@@ -22,7 +22,8 @@ Phase 4  the device-wave bulk build (bulk_build, d=128, M=16, efC=200,
          defaults first_wave=4096 and select_c=64: waves of up to 16384 at
          expand=2, ef=200, on the split tier through the hop_dist_inline
          kernel with row-delta syncs): (g) phase 2's 100k dataset, held to
-         the host-built graph's recall; (h) N=1M of the reference's 1M sweep
+         the host-built graph's recall; (w) a wide graph, M=32 (m0=64), on
+         30k of the same data; (h) N=1M of the reference's 1M sweep
          data, then served after rebuild_device_tables(), then 1000 inserts
          that must sync as a delta.
 
@@ -46,6 +47,7 @@ SEED = 123
 EXPECTED_RECALL = 0.9945  # bench.py's operating point, for information only
 N_TIERS, N_U8, NQ_TIERS = 2_000_000, 100_000, 1024
 N_BULK = 1_000_000
+N_WIDE = 30_000  # the M=32 bulk build of phase 4 (w)
 # the H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor) flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -220,15 +222,18 @@ def phase1(dev) -> dict:
             **{f"{tag}_{key}": cases[i][key] for i, tag in ((1, "e2"), (4, "b8192"))
                for key in ("ms", "plain_ms", "bound_ms")})
 
-    def inline_case(b, e, m0, d, space, rows, timed):
-        """hop_dist_inline (the split tier) against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def inline_case(b, e, m0, d, space, rows, timed, beside_unified=False):
+        """hop_dist_inline (the split tier) against its plain version; with
+        `beside_unified` the unified bf16 hop is timed on the same tensors,
+        in turns with it. The table is made on the card (the largest is
+        2.1 GB)."""
         d_pad = -(-d // 8) * 8
-        nbr = torch.from_numpy(
-            rng.normal(size=(rows, m0, d_pad)).astype(np.float32)).to(dev).to(torch.bfloat16)
+        nbr = torch.randn((rows, m0, d_pad), generator=gen, device=dev, dtype=torch.bfloat16)
         nbr[:, :, d:] = 0
-        nbr = nbr.contiguous()
-        level0 = torch.from_numpy(
-            rng.integers(0, 1 << 30, size=(rows, m0)).astype(np.int32)).to(dev)
+        level0 = torch.randint(0, 1 << 30, (rows, m0), generator=gen, device=dev,
+                               dtype=torch.int32)
         q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
         chosen = torch.from_numpy(rng.integers(0, rows, size=(b, e)).astype(np.int32)).to(dev)
         dk, ik = gk.hop_dist_inline(q, nbr, level0, chosen, space)
@@ -254,26 +259,48 @@ def phase1(dev) -> dict:
             gb = b * e * m0 * row_bytes / 1e9
             msg += (f", kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s of blocks read), "
                     f"plain {pms:.4f} ms, bound as read {res['read_bound_ms']:.4f} ms, bound "
-                    f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {blocks} distinct blocks), "
-                    "library: none")
+                    f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {blocks} distinct blocks "
+                    f"of {b * e} read), library: none")
+            if beside_unified:
+                table = gk.UnifiedTable(nbr, level0)
+                du, iu = gk.hop_dist_unified(q, table, chosen, space)
+                if not (torch.equal(iu, ik) and torch.allclose(du, dk, rtol=1e-5, atol=1e-4)):
+                    fail(f"{tag}: the unified bf16 hop disagrees on the same tensors")
+                ums, ims = timed_pair(lambda: gk.hop_dist_unified(q, table, chosen, space),
+                                      lambda: gk.hop_dist_inline(q, nbr, level0, chosen, space))
+                res.update(unified_ms=ums, beside_ms=ims)
+                msg += (f"; in turns on the same tensors: unified bf16 hop {ums:.4f} ms, "
+                        f"split hop {ims:.4f} ms")
         log(msg)
         return res
 
-    # the split tier's hop: the last timed case, B=16384 and E=2, is a
-    # bulk-build wave's launch (phase 4) and gives the kernels line's times
+    # The split tier's hop. At B=16384 and E=2, a bulk-build wave's launch
+    # (phase 4), a table of 16384 blocks is chosen from twice over: more than
+    # half of its block reads repeat within the launch and may be served by
+    # the L2. A wave of the 1M build chooses among a million blocks, so that
+    # launch is timed again on a table of 262144 blocks (2.1 GB), where
+    # repeats are rare and the blocks come from device memory; that case
+    # gives the kernels line's times, with the unified bf16 hop beside it.
     cases = [
         inline_case(1024, 1, 32, 128, "l2", 16384, True),
         inline_case(1024, 2, 32, 128, "l2", 16384, True),
         inline_case(8192, 2, 32, 128, "l2", 16384, True),
         inline_case(16384, 2, 32, 128, "l2", 16384, True),
+        inline_case(16384, 2, 32, 128, "l2", 262144, True, beside_unified=True),
         inline_case(1024, 2, 32, 128, "ip", 16384, False),
         inline_case(1024, 1, 32, 96, "l2", 16384, False),
         inline_case(1024, 2, 32, 96, "ip", 16384, False),
         inline_case(1024, 1, 16, 128, "l2", 4096, False),
+        # M=32 graphs: m0=64, two steps of the row loop per chosen node
+        inline_case(1024, 2, 64, 128, "l2", 8192, True),
+        inline_case(1024, 1, 64, 96, "ip", 8192, False),
     ]
-    out["hop_inline"] = dict(cases[3], max_abs_err=max(c["err"] for c in cases))
-    log(f"[phase1] split hop vs unified bf16 hop at B=16384 E=2: "
-        f"{cases[3]['ms']:.4f} ms vs {out['hop_bf16_b16384_ms']:.4f} ms")
+    out["hop_inline"] = dict(cases[4], max_abs_err=max(c["err"] for c in cases),
+                             small_table_ms=cases[3]["ms"])
+    log(f"[phase1] split hop vs unified bf16 hop at B=16384 E=2: table of 16384 blocks "
+        f"(repeats in the L2) {cases[3]['ms']:.4f} ms vs {out['hop_bf16_b16384_ms']:.4f} ms; "
+        f"table of 262144 blocks {cases[4]['beside_ms']:.4f} ms vs "
+        f"{cases[4]['unified_ms']:.4f} ms")
 
     def gather_case(dtype, b, kk, d, space, rows, timed):
         table = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(dev)
@@ -680,13 +707,13 @@ def phase4(dev, launches, p2) -> dict:
 
     out = {}
 
-    def build(name, x):
+    def build(name, x, m=M):
         """bulk_build with the counts set to 0 just before and read just
         after; the split kernel's launches go to the kernels line."""
         torch.cuda.synchronize()
         COUNTS.reset()
         t0 = time.time()
-        idx = bulk_build(x, space="l2", m=M, ef_construction=EF_C, verbose=True, device=dev)
+        idx = bulk_build(x, space="l2", m=m, ef_construction=EF_C, verbose=True, device=dev)
         secs = time.time() - t0
         if COUNTS.plain_on_cuda:
             fail(f"({name}) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
@@ -694,7 +721,7 @@ def phase4(dev, launches, p2) -> dict:
             fail(f"({name}) hop_dist_inline was never launched")
         launches["hop_dist_inline"] += COUNTS.hop_dist_inline
         stages = check_waves(name, idx, round_up(len(x) + 1, 128))
-        log(f"[phase4] ({name}) bulk_build N={len(x)} d={DIM} M={M} efC={EF_C}: {secs:.1f}s "
+        log(f"[phase4] ({name}) bulk_build N={len(x)} d={DIM} M={m} efC={EF_C}: {secs:.1f}s "
             f"({len(x) / secs:.0f} inserts/s)")
         out[name] = {"build_s": secs, **stages, "waves": len(idx.wave_log)}
         return idx
@@ -713,7 +740,28 @@ def phase4(dev, launches, p2) -> dict:
         f"(host-built graph {host:.4f}), {qps_g:.0f} qps on the {idx._device.tier} tier")
     if rec < 0.95 or rec < host - 0.02:
         fail(f"(g) recall {rec} below 0.95 or more than 0.02 under the host-built {host}")
-    del idx, x
+    del idx
+
+    # (w) a wide graph, M=32 (m0=64), on the first 30k of the same data: its
+    # waves too run the split tier through hop_dist_inline
+    xw = x[:N_WIDE]
+    oracle = BruteforceIndex(L2Space(DIM), device=dev)
+    oracle.add_items(xw, np.arange(N_WIDE))
+    _, gt_w = oracle.search_knn(q, K)
+    del oracle
+    idx = build("w", xw, m=32)
+    check_integrity(idx.graph, require_inbound=False)
+    st = idx.rebuild_device_tables()  # the waves' tier was split
+    if st.tier != "unified" or st.graph.level0.shape[1] != 64:
+        fail(f"(w) serves tier {st.tier} at level-0 width {st.graph.level0.shape[1]}")
+    del st
+    _, lab_w, _, c_w = run_mode(idx, "w", q, 1, launches, k=K, ef=200)
+    need_launch("w", c_w, "hop_dist_unified")
+    out["w"]["recall"] = rec = recall(lab_w, gt_w)
+    log(f"[phase4] (w) graph integrity ok; recall@10 at ef=200: {rec:.4f}")
+    if rec < 0.95:
+        fail(f"(w) recall {rec} < 0.95")
+    del idx, x, xw
     torch.cuda.empty_cache()
 
     # (h) N=1M, the reference's 1M sweep data (seed 7, 4096 centers); 62k

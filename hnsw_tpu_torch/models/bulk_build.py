@@ -56,7 +56,7 @@ from hnsw_tpu_torch.models.hnsw import (
 )
 from hnsw_tpu_torch.native.hnsw_builder import NativeHNSWBuilder
 from hnsw_tpu_torch.ops.distance import matmul_precision
-from hnsw_tpu_torch.ops.gather_kernels import COUNTS, pick_tier, tier_bytes
+from hnsw_tpu_torch.ops.gather_kernels import COUNTS, tier_bytes
 from hnsw_tpu_torch.ops.topk import bruteforce_topk
 from hnsw_tpu_torch.ops.traversal import search_batch
 
@@ -474,10 +474,11 @@ def bulk_build(
     # clamped to UNIFIED_WAVE_MAX_BYTES and the ladder falls to the split
     # rung. Past the split budget the serving budget stands (a unified rung,
     # int8 at the sizes where bf16 does not fit either) without the upper
-    # descent tables. Where no rung applies (m0 > 32 under the clamped
-    # budget, as at M=32) the waves search through plain row gathers.
-    serve = (idx.unified_max_bytes, idx.split_max_bytes, idx.upper_inline,
-             idx.inline_neighbors)
+    # descent tables. Where no rung fits, the first wave's sync raises
+    # (build_inline_tables); the waves search through row gathers only on an
+    # index made with inline_neighbors off (M > 64). Each wave's verbose line
+    # and wave_log entry name the tier it ran on.
+    serve = (idx.unified_max_bytes, idx.split_max_bytes, idx.upper_inline)
     n_pad_est = round_up(n + 1, 128)
     m0_pad = max(16, round_up(2 * m, 16))
     split_budget = idx._split_budget()
@@ -489,14 +490,6 @@ def bulk_build(
         idx.unified_max_bytes = idx._unified_budget()
         idx.upper_inline = False
     idx.split_max_bytes = split_budget
-    wave_tier = None
-    if idx.inline_neighbors:
-        wave_tier = pick_tier(n_pad_est, m0_pad, space.dim, idx.unified_max_bytes,
-                              split_budget)
-        if wave_tier is None:
-            idx.inline_neighbors = False
-    if verbose:
-        print(f"  wave tier: {wave_tier or 'row gathers'}", flush=True)
     idx.wave_log = []
 
     def wave_link(rows, ids):
@@ -544,8 +537,7 @@ def bulk_build(
                 last_save = time.time()
     finally:
         # the serving configuration, and the post-build insert headroom
-        (idx.unified_max_bytes, idx.split_max_bytes, idx.upper_inline,
-         idx.inline_neighbors) = serve
+        idx.unified_max_bytes, idx.split_max_bytes, idx.upper_inline = serve
         idx.growth_headroom = 1 / 16
         idx._dirty = True
     if checkpoint:

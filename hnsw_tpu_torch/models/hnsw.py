@@ -53,21 +53,12 @@ UNIFIED_WAVE_MAX_BYTES = 0
 DELTA_CHUNK = 1 << 15
 
 
-def _bucket(k: int) -> int:
-    """A delta size rounded up to a power of two (at least 256); the slack is
-    filled with writes to the sentinel row. Deltas of every size then take
-    transient buffers of a few sizes, which the caching allocator reuses."""
-    if k <= 0:
-        return 0
-    return max(256, 1 << (k - 1).bit_length())
-
-
 def _apply_row_deltas(
     st: "_DeviceState",
     new_vecs: torch.Tensor,  # [Nb, D] f32 appended or updated vectors
-    new_ids: torch.Tensor,  # [Nb] int32 destination rows (sentinel-padded)
-    dirty_ids: torch.Tensor,  # [Kb] int32 (sentinel-padded)
-    dirty_rows: torch.Tensor,  # [Kb, m0_pad] int32 (sentinel-padded)
+    new_ids: torch.Tensor,  # [Nb] int32 destination rows
+    dirty_ids: torch.Tensor,  # [Kb] int32
+    dirty_rows: torch.Tensor,  # [Kb, m0_pad] int32
     *,
     exact_i8: bool = False,  # unified8 codes are l2u8's lossless scale-1 codes
 ) -> None:
@@ -75,8 +66,9 @@ def _apply_row_deltas(
     new vectors (with their squared norms and, on the quantized tiers, codes
     and scales), scatter the changed level-0 rows, and rewrite the rows of
     the tier's table that embed them (kind "off", "split", "unified",
-    "unified8" or "unified4"). The sentinel row n_pad-1 absorbs the padding
-    writes: it stays all-sentinel links, a zero vector and a zero norm.
+    "unified8" or "unified4"). A delta is applied at its own size: eager
+    torch compiles nothing per shape, so the JAX package's padding of deltas
+    to power-of-two buckets has no counterpart here.
 
     Squared norms and codes are taken from the STORED values (bf16-rounded
     under bf16 storage), as a full sync takes them, so a delta state equals
@@ -463,7 +455,7 @@ class HNSWIndex:
         n_new = n - old_n
         n_upd = b.flush_updates()  # must precede take_dirty
         vec_ids = b.take_vec_dirty(n_upd)
-        nb = _bucket(n_new + n_upd)
+        nb = n_new + n_upd
         dirty_ids = b.take_dirty()
         k = dirty_ids.shape[0]
         if k == 0 and n_new == 0 and n_upd == 0 and not (flags & 1):
@@ -490,18 +482,10 @@ class HNSWIndex:
             new_ids[n_new : n_new + n_upd] = vec_ids
 
         dev = self.device
-        # bounded slices, each a sentinel-padded power-of-two bucket; the new
-        # vectors ride the first
+        # bounded slices; the new vectors ride the first
         for si, s0 in enumerate(range(0, k, DELTA_CHUNK) or [0]):
             ids_c = dirty_ids[s0 : s0 + DELTA_CHUNK]
             rows_c = rows[s0 : s0 + DELTA_CHUNK]
-            kc = ids_c.shape[0]
-            kb = _bucket(kc)
-            if kb != kc:
-                ids_c = np.concatenate([ids_c, np.full(kb - kc, sent, np.int32)])
-                rows_c = np.concatenate(
-                    [rows_c, np.full((kb - kc, m0_pad), sent, np.int32)]
-                )
             first = si == 0
             _apply_row_deltas(
                 st,

@@ -402,10 +402,12 @@ def pick_tier(
     """The rung build_inline_tables takes for this shape: the bf16 tables if
     they fit `budget` bytes (None: no limit), else int8, else int4, each
     counted by tier_bytes, else the split table under `split_max_bytes`; None
-    when no rung applies. JAX's order and shape conditions
-    (pallas_gather.build_inline_tables) are kept, its TPU row's lane width
-    and 32-node id tile included, so a shape picks the same rung in both
-    packages."""
+    when no rung applies. JAX's order and the shape conditions of its unified
+    rungs (pallas_gather.build_inline_tables) are kept, its TPU row's lane
+    width included, so a shape that JAX gives a rung picks the same rung
+    here. JAX's split rung also needs m0 <= 32, the width of its id tile;
+    the split kernel here reads ids from level0 at any m0, so that condition
+    is not carried over and a wide graph (M=32) gets the split rung too."""
     d_pad_j = round_up(dim, 128)  # the TPU row's lane width
     need = tier_bytes(n_pad, m0, dim)
 
@@ -418,7 +420,7 @@ def pick_tier(
         return "unified8"
     if 2 * m0 <= 128 and m0 * d_pad_j % 1024 == 0 and fits("unified4", budget):
         return "unified4"
-    if m0 <= 32 and fits("split", split_max_bytes):
+    if fits("split", split_max_bytes):
         return "split"
     return None
 
@@ -443,7 +445,7 @@ def build_inline_tables(
             f"no tier fits: unified budget {budget} bytes (bf16 "
             f"{need['unified']}, int8 {need['unified8']}, int4 "
             f"{need['unified4']}), split budget {split_max_bytes} bytes "
-            f"(split {need['split']}, m0 {m0}, at most 32); pass "
+            f"(split {need['split']}); pass "
             "inline_neighbors=False to serve through plain row gathers"
         )
     if tier == "split":

@@ -308,7 +308,7 @@ def test_bulk_build_checkpoint_resume(tmp_path, monkeypatch):
     assert tbb._data_fingerprint(x) == jbb._data_fingerprint(x) != tbb._data_fingerprint(x[:-1])
 
 
-def test_bulk_build_seeded_waves_and_wide_m():
+def test_bulk_build_seeded_waves_and_wide_m(monkeypatch):
     x = _data(1200, seed=11)
     q = x[:64] + 0.01 * _data(64, seed=12)
     gt = _oracle_gt(x, q)
@@ -316,11 +316,18 @@ def test_bulk_build_seeded_waves_and_wide_m():
                             wave_stop_frontier=1.15, wave_entry_seeds=4, wave_seed_pool=64)
     check_integrity(seeded.graph, require_inbound=False)
     assert _recall(seeded.search(q, k=10, ef=100)[1], gt) >= 0.9
-    # M=32: m0 = 64 fits no rung under the waves' clamped budget, so the
-    # build itself sends its waves through plain row gathers, and says so
+    # M=32: m0 = 64 is past the JAX kernel's id tile; here the waves run the
+    # split tier all the same
     wide = tbb.bulk_build(x, m=32, ef_construction=64, first_wave=512, device="cpu")
-    assert [w["tier"] for w in wide.wave_log] == [None, None]
+    assert [w["tier"] for w in wide.wave_log] == ["split", "split"]
     assert wide.inline_neighbors and wide.unified_max_bytes is None
+    # a build whose waves fit no rung raises at its first wave's sync and
+    # leaves the serving configuration as it was
+    monkeypatch.setattr(HNSWIndex, "_split_budget", lambda self: 0)
+    monkeypatch.setattr(HNSWIndex, "_unified_budget", lambda self: 0)
+    with pytest.raises(MemoryError, match="no tier fits"):
+        tbb.bulk_build(x[:300], m=8, ef_construction=32, device="cpu")
+    monkeypatch.undo()
     check_integrity(wide.graph, require_inbound=False)
     _, lab = wide.search(q, k=10, ef=100)
     assert wide._device.tier == "unified" and _recall(lab, gt) >= 0.9

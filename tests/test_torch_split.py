@@ -69,6 +69,26 @@ def test_hop_inline_plain_matches_jax_interpret(space, e, m0, d):
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("space,e,d", [("l2", 2, 128), ("ip", 1, 96)])
+def test_hop_inline_plain_wide_m0_matches_row_gathers(space, e, d):
+    """m0 = 64 (M=32), past the JAX kernel's id tile: the split hop against
+    the distances of the neighbors' own bf16-rounded rows, in numpy."""
+    m0 = 64
+    x, level0, q, chosen = _random_case(d, m0, seed=d + e, e=e)
+    nbr = gk.make_inline_neighbors(torch.from_numpy(x), torch.from_numpy(level0))
+    got_d, got_i = gk.hop_dist_inline(
+        torch.from_numpy(q), nbr, torch.from_numpy(level0), torch.from_numpy(chosen), space
+    )
+    want_i = level0[chosen].reshape(len(q), e * m0)
+    rows = torch.from_numpy(x).bfloat16().float().numpy()[want_i]  # [B, E*m0, d]
+    if space == "ip":
+        want_d = 1.0 - (rows * q[:, None, :]).sum(-1)
+    else:
+        want_d = ((rows - q[:, None, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_allclose(got_d.numpy(), want_d, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("d,m0", [(40, 16), (128, 32), (96, 32)])
 def test_split_tables_bit_equal_to_jax(d, m0):
     x, level0, _, _ = _random_case(d, m0, seed=d, n=333)
@@ -118,14 +138,16 @@ def test_ladder_picks_split_where_jax_does(shared):
     w_nbr, w_l0 = split_from_jax(_jax_bits(jdev[5][1]), np.asarray(jdev[5][2]), m0, D)
     np.testing.assert_array_equal(_bits(st.nbr_vectors), _bits(w_nbr))
     np.testing.assert_array_equal(st.graph.level0.numpy(), w_l0.numpy())
-    # the rung is taken only under its own budget, after int4; JAX's tile
-    # needs m0 <= 32, and so does the rung here
+    # the rung is taken only under its own budget, after int4. JAX's id tile
+    # needs m0 <= 32; the kernel here reads level0 itself, at any m0
     need = gk.tier_bytes(n_pad, m0, D)
     assert gk.pick_tier(n_pad, m0, D, need["unified4"] - 1, None) == "split"
     assert gk.pick_tier(n_pad, m0, D, need["unified4"], 0) == "unified4"
     assert gk.pick_tier(n_pad, m0, D, 0, need["split"]) == "split"
     assert gk.pick_tier(n_pad, m0, D, 0, need["split"] - 1) is None
-    assert gk.pick_tier(n_pad, 64, D, 0, None) is None
+    assert gk.pick_tier(n_pad, 64, D, 0, None) == "split"
+    wide = gk.tier_bytes(n_pad, 64, D)
+    assert gk.pick_tier(n_pad, 64, D, 0, wide["split"] - 1) is None
     assert jpg.build_inline_tables(jdev[1], jdev[0], D, 0, need["split"] - 1) is None
 
 
@@ -212,6 +234,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("space,e,m0,d", [
     ("l2", 2, 32, 128), ("ip", 1, 16, 96), ("l2", 1, 32, 96), ("ip", 2, 32, 128),
+    ("l2", 2, 64, 128), ("ip", 1, 64, 96),
 ])
 def test_hop_inline_kernel_matches_plain_on_cuda(cuda_device, space, e, m0, d):
     x, level0, q, chosen = _random_case(d, m0, seed=1, n=500, b=64, e=e)

@@ -247,11 +247,24 @@ def test_replace_deleted_requires_flag_and_appends_when_none_deleted():
     np.testing.assert_array_equal(lab[:, 0], [200, 201, 202])
 
 
-def test_bucket_matches_jax():
-    for k in (0, 1, 255, 256, 257, 1000, 1 << 15, (1 << 15) + 1):
-        assert thnsw._bucket(k) == jhnsw._bucket(k)
+def test_delta_at_its_own_size_leaves_the_sentinel_row_clean():
+    """Deltas are applied unpadded (JAX pads them to power-of-two buckets with
+    writes to the sentinel row, to spare a compile per size): a one-row delta
+    gives the rebuild's state, and the sentinel row stays all-sentinel links
+    and a zero vector. The slice size and the waves' budget are JAX's."""
     assert thnsw.DELTA_CHUNK == jhnsw.DELTA_CHUNK
     assert thnsw.UNIFIED_WAVE_MAX_BYTES == jhnsw.UNIFIED_WAVE_MAX_BYTES == 0
+    t, _ = _pair("split")
+    t._builder.add_batch(_data(N), np.arange(N), n_threads=1)
+    t._sync_device()
+    t._builder.add(_data(1, seed=6)[0], N)
+    t._dirty = True
+    st = t._sync_device()
+    assert t._last_sync_mode == "delta"
+    sent = st.graph.n_pad - 1
+    assert (st.graph.level0[sent] == sent).all() and not st.vectors[sent].any()
+    assert not st.nbr_vectors[sent].any() and st.sq_norms[sent] == 0
+    _assert_states_equal(_port_state(t), _rebuilt(t))
 
 
 @pytest.mark.parametrize("kind", ["split", "unified"])
