@@ -17,15 +17,18 @@ Phase 3  the serving tiers below bf16 at N=2M (d=128, M=16, efC=200, the
          rebuild_device_tables(unified_max_bytes=...): (d) int8 with f32
          storage and the auto rescore, (e) int4 with bf16 storage (the
          reference's N=4M serving configuration, cut to 2M), and (f) the
-         exact l2u8 space on 100k uint8 vectors over lossless int8 codes.
+         exact l2u8 space on 2M uint8 vectors (bin/sweep_u8.py's data),
+         bulk-built and served over lossless int8 codes.
 Phase 4  the device-wave bulk build (bulk_build, d=128, M=16, efC=200,
          defaults first_wave=4096 and select_c=64: waves of up to 16384 at
          expand=2, ef=200, on the split tier through the hop_dist_inline
          kernel with row-delta syncs): (g) phase 2's 100k dataset, held to
-         the host-built graph's recall; (w) a wide graph, M=32 (m0=64), on
-         30k of the same data; (h) N=1M of the reference's 1M sweep
-         data, then served after rebuild_device_tables(), then 1000 inserts
-         that must sync as a delta.
+         the host-built graph's recall; (i) the same data with the budgets
+         (SPLIT_MAX_BYTES, UNIFIED_MAX_BYTES) set so that every wave runs on
+         the int8 unified tier; (w) a wide graph, M=32 (m0=64), on 30k of the
+         same data; (h) N=1M of the reference's 1M sweep data, then served
+         after rebuild_device_tables(), then 1000 inserts that must sync as a
+         delta.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -45,7 +48,7 @@ N, DIM, M, EF_C, K = 100_000, 128, 16, 200, 10
 BATCH = 8192
 SEED = 123
 EXPECTED_RECALL = 0.9945  # bench.py's operating point, for information only
-N_TIERS, N_U8, NQ_TIERS = 2_000_000, 100_000, 1024
+N_TIERS, N_U8, NQ_TIERS = 2_000_000, 2_000_000, 1024
 N_BULK = 1_000_000
 N_WIDE = 30_000  # the M=32 bulk build of phase 4 (w)
 # the H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor) flop/s
@@ -200,7 +203,11 @@ def phase1(dev) -> dict:
     # m0=32, d=128, past the 50 MB L2 like the real tables. The first case,
     # B=1024 and E=1, is the main path's usual launch (the default expand=1
     # of phase 2 (b), (c) and every phase-3 mode) and gives the kernels
-    # line's times; E=2 at B=1024 and B=8192 is the speed mode's (a).
+    # line's times; E=2 at B=1024 and B=8192 is the speed mode's (a). These
+    # times repeat one `chosen` 20 times, so a B=1024 launch (~8.5 MB of
+    # bf16 blocks) is served from the L2 from its second repeat on: they are
+    # warm times, kept to stand beside earlier runs'. cold_cases() times
+    # rows 1 and 3 the way the main path reads memory.
     for tier in ("bf16", "int8", "int4"):
         cases = [
             hop_case(tier, 1024, 1, 32, 128, "l2", 16384, True),
@@ -223,6 +230,10 @@ def phase1(dev) -> dict:
                for key in ("ms", "plain_ms", "bound_ms")})
 
     gen = torch.Generator(device=dev).manual_seed(7)
+    for tier, err in ring_sweep(dev, gen).items():
+        out[f"hop_{tier}"]["max_abs_err"] = max(out[f"hop_{tier}"]["max_abs_err"], err)
+    for tier, res in cold_cases(dev, gen).items():
+        out[f"hop_{tier}"].update(res)
 
     def inline_case(b, e, m0, d, space, rows, timed, beside_unified=False):
         """hop_dist_inline (the split tier) against its plain version; with
@@ -342,6 +353,200 @@ def phase1(dev) -> dict:
             gather_case(dtype, 1024, 40, 128, "ip", 200_000, False),
         ]
         out[name] = dict(cases[0], max_abs_err=max(c["err"] for c in cases))
+    torch.cuda.empty_cache()  # phase 1's tables are gone: the card is free again
+    return out
+
+
+def dev_table(dev, gen, tier, rows, m0, d, exact=False):
+    """A random unified table ("bf16" or "int8") made on the card: the
+    largest is 8.6 GB, too large to draw on the host. `exact` gives l2u8's
+    lossless scale-1 codes."""
+    import torch
+
+    from hnsw_tpu_torch.ops import gather_kernels as gk
+
+    d_pad = -(-d // 8) * 8
+    payload = torch.randint(0, 1 << 30, (rows, m0), generator=gen, device=dev,
+                            dtype=torch.int32)
+    if tier == "bf16":
+        vecs = torch.randn((rows, m0, d_pad), generator=gen, device=dev, dtype=torch.bfloat16)
+        vecs[:, :, d:] = 0
+        return gk.UnifiedTable(vecs, payload)
+    codes = torch.randint(-128 if exact else -127, 128, (rows, m0, d_pad), generator=gen,
+                          device=dev, dtype=torch.int8)
+    codes[:, :, d:] = 0
+    if exact:
+        scales = torch.ones((rows, m0), device=dev)
+    else:
+        scales = 0.01 + 0.09 * torch.rand((rows, m0), generator=gen, device=dev)
+    return gk.Unified8Table(codes, scales, payload)
+
+
+def ring_sweep(dev, gen) -> dict:
+    """Rows 1 and 3 (the node-block ring) against their plain versions at
+    every shape the wrapper takes: m0 16 to 128 (m0=128 at d=128 is cut into
+    two pieces of rows), d 96 and 128, E 1, 2 and 4, L2 and IP, chosen ids
+    out of range (NaN, -1), B*E far below the persistent grid (B=48) and far
+    above it (B=4096, E=4), a row as wide as the wrapper allows (d=12288,
+    one piece of 2 rows, a ring past 48 KB), and l2u8's scale-1 codes, whose
+    distances must equal the int64 ones. Ids exactly equal, distances within
+    rtol 1e-5, atol 1e-4. Returns the largest error per tier."""
+    import torch
+
+    from hnsw_tpu_torch.ops import gather_kernels as gk
+
+    errs = {"bf16": 0.0, "int8": 0.0}
+    nan = float("nan")
+
+    def check(tier, table, b, e, space, exact=False, d=None):
+        rows = table.rows
+        if exact:
+            q = torch.randint(-128, 128, (b, d), generator=gen, device=dev).float()
+        else:
+            q = torch.randn((b, d), generator=gen, device=dev)
+        chosen = torch.randint(0, rows, (b, e), generator=gen, device=dev, dtype=torch.int32)
+        chosen[0, 0], chosen[1, e - 1], chosen[2, 0] = -1, rows, rows - 1
+        dk, ik = gk.hop_dist_unified(q, table, chosen, space)
+        ok = (chosen >= 0) & (chosen < rows)
+        dp, ip_ = gk.hop_dist_unified_plain(q, table, torch.where(ok, chosen, 0), space)
+        bad = (~ok).repeat_interleave(table.m0, dim=1)
+        dp, ip_ = dp.masked_fill(bad, nan), ip_.masked_fill(bad, -1)
+        torch.cuda.synchronize()
+        tag = (f"ring sweep {tier} B={b} E={e} m0={table.m0} d={d} {space}"
+               + (" scale-1 codes" if exact else ""))
+        if not torch.equal(ik, ip_):
+            fail(f"{tag}: ids differ")
+        if exact:
+            codes = table.codes[torch.where(ok, chosen, 0).long()][..., :d].long()
+            ref = ((codes - q.long()[:, None, None, :]) ** 2).sum(-1).reshape(b, -1)
+            if not (torch.equal(dk[~bad], dp[~bad]) and torch.equal(dk[~bad].long(), ref[~bad])):
+                fail(f"{tag}: dists differ from the exact int64 distances")
+        if not (torch.isnan(dk) == bad).all():
+            fail(f"{tag}: NaN where a chosen id was in range, or none where it was not")
+        if not torch.allclose(dk[~bad], dp[~bad], rtol=1e-5, atol=1e-4):
+            fail(f"{tag}: dists differ, max {float((dk[~bad] - dp[~bad]).abs().max())}")
+        errs[tier] = max(errs[tier], float((dk[~bad] - dp[~bad]).abs().max()))
+        return 1
+
+    t0, n = time.time(), 0
+    for tier in ("bf16", "int8"):
+        for m0 in (16, 32, 64, 128):
+            for d in (96, 128):
+                table = dev_table(dev, gen, tier, 2048, m0, d)
+                for e in (1, 2, 4):
+                    n += check(tier, table, 48, e, "l2", d=d) + check(tier, table, 48, e, "ip", d=d)
+                if d == 128:
+                    n += check(tier, table, 4096, 4, "l2", d=d)
+            if tier == "int8":
+                table = dev_table(dev, gen, tier, 2048, m0, 128, exact=True)
+                n += check(tier, table, 48, 2, "l2", exact=True, d=128)
+                n += check(tier, table, 4096, 4, "l2", exact=True, d=128)
+        n += check(tier, dev_table(dev, gen, tier, 64, 16, 12288), 8, 2, "l2", d=12288)
+    log(f"[phase1] ring sweep: rows 1 and 3 agree with their plain versions in {n} cases "
+        f"({time.time() - t0:.1f}s); max_abs_err bf16 {errs['bf16']:.3e}, "
+        f"int8 {errs['int8']:.3e}")
+    return errs
+
+
+def cold_ms(fn, chosens) -> float:
+    """cuda_ms of fn(chosen) with a fresh `chosen` for each of its 21 calls,
+    so that a launch rarely finds its blocks in the L2, as a beam iteration
+    of the main path does not."""
+    it = iter(chosens)
+    return cuda_ms(lambda: fn(next(it)))
+
+
+def profiled_ms(fn, kernel: str) -> float:
+    """Device ms that torch.profiler gives the kernels named `kernel` in one
+    call of `fn`, summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum((getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key) / 1e3
+
+
+def cold_cases(dev, gen) -> dict:
+    """Rows 1 and 3 timed cold on tables of 262,144 node blocks (bf16 2.2 GB,
+    int8 1.1 GB; m0=32, d=128, L2) at the main path's launches, with row 6
+    (the split hop) and row 1 in turns on the same tensors at a bulk-build
+    wave's launch, there and on a table of 1,048,576 blocks (8.6 GB, a 1M
+    build's split table), and int8 and bf16 in turns at the speed mode's
+    launch. Bound A: the blocks as read (every pair's block, its ids and
+    scales) at 3.35 TB/s."""
+    import torch
+
+    from hnsw_tpu_torch.ops import gather_kernels as gk
+
+    rows, m0, d = 262_144, 32, 128
+
+    def chosen_sets(b, e, r):
+        return [torch.randint(0, r, (b, e), generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(21)]
+
+    def read_ms(tier, b, e):  # bound A
+        return b * e * m0 * HOP_ROW_BYTES[tier](d) / PEAK_BYTES * 1e3
+
+    tables = {t: dev_table(dev, gen, t, rows, m0, d) for t in ("bf16", "int8")}
+    out = {"bf16": {}, "int8": {}}  # the kernels line's cold times
+    sets = {}
+    for (b, e), key in (((1024, 1), "cold_ms"), ((1024, 2), None),
+                        ((8192, 2), "cold_b8192_ms"), ((16384, 2), None)):
+        q = torch.randn((b, d), generator=gen, device=dev)
+        ch = sets[b, e] = (q, chosen_sets(b, e, rows))
+        for tier, table in tables.items():
+            dk, ik = gk.hop_dist_unified(q, table, ch[1][0])
+            dp, ip_ = gk.hop_dist_unified_plain(q, table, ch[1][0])
+            if not (torch.equal(ik, ip_) and torch.allclose(dk, dp, rtol=1e-5, atol=1e-4)):
+                fail(f"cold {tier} hop B={b} E={e}: differs from its plain version")
+            ms = cold_ms(lambda c: gk.hop_dist_unified(q, table, c), ch[1])
+            bound_a = read_ms(tier, b, e)
+            if key:
+                out[tier][key] = ms
+            log(f"[phase1] cold {tier} hop B={b} E={e} m0={m0} d={d} l2, {rows} blocks: "
+                f"{ms:.4f} ms, bound A {bound_a * 1e3:.1f} us ({bound_a / ms:.0%} of bound), "
+                f"{b * e * m0 * HOP_ROW_BYTES[tier](d) / ms / 1e6:.0f} GB/s of blocks read")
+
+    # int8 against bf16 at the speed mode's launch, in turns
+    q, ch = sets[8192, 2]
+    b16, i8 = tables["bf16"], tables["int8"]
+    t16_a, t8_a, t8_b, t16_b = (cold_ms(lambda c: gk.hop_dist_unified(q, t, c), ch)
+                                for t in (b16, i8, i8, b16))
+    ratio = (t8_a + t8_b) / (t16_a + t16_b)
+    log(f"[phase1] cold B=8192 E=2 in turns: int8 {(t8_a + t8_b) / 2:.4f} ms, bf16 "
+        f"{(t16_a + t16_b) / 2:.4f} ms: int8 takes {ratio:.2f} of bf16's time for "
+        f"{HOP_ROW_BYTES['int8'](d) / HOP_ROW_BYTES['bf16'](d):.2f} of its bytes")
+    del tables, i8
+    torch.cuda.empty_cache()
+
+    # row 6 and row 1 in turns on the same tensors, cold, at a wave's launch
+    b, e = 16384, 2
+    q = torch.randn((b, d), generator=gen, device=dev)
+    for r in (rows, 1 << 20):
+        table = b16 if r == rows else dev_table(dev, gen, "bf16", r, m0, d)
+        ch = chosen_sets(b, e, r)
+        s_a, u_a, u_b, s_b = (
+            cold_ms(lambda c: gk.hop_dist_inline(q, table.vecs, table.payload, c), ch),
+            cold_ms(lambda c: gk.hop_dist_unified(q, table, c), ch),
+            cold_ms(lambda c: gk.hop_dist_unified(q, table, c), ch),
+            cold_ms(lambda c: gk.hop_dist_inline(q, table.vecs, table.payload, c), ch))
+        split, unified = (s_a + s_b) / 2, (u_a + u_b) / 2
+        log(f"[phase1] cold B={b} E={e} on {r} blocks ({table.nbytes / 1e9:.1f} GB), in "
+            f"turns: split hop (row 6) {split:.4f} ms, unified bf16 hop (row 1) "
+            f"{unified:.4f} ms, bound A {read_ms('bf16', b, e) * 1e3:.1f} us")
+        if r > rows:  # the same 20 launches of row 6 as torch.profiler times them
+            prof = profiled_ms(lambda: [gk.hop_dist_inline(q, table.vecs, table.payload, c)
+                                        for c in ch[1:]], "hop_dist_inline") / 20
+            log(f"[phase1] the same split hop launches under torch.profiler: {prof:.4f} ms "
+                f"a launch (CUDA events: {split:.4f} ms)")
+        del table
+    del b16
+    torch.cuda.empty_cache()
     return out
 
 
@@ -511,7 +716,7 @@ def tier_state(idx, budget, tier):
 def phase3(dev, launches) -> dict:
     import torch
 
-    from hnsw_tpu_torch import BruteforceIndex, HNSWIndex, L2Space, SearchParams
+    from hnsw_tpu_torch import BruteforceIndex, HNSWIndex, L2Space, SearchParams, bulk_build
     from hnsw_tpu_torch.ops.gather_kernels import tier_bytes
 
     out = {}
@@ -587,12 +792,16 @@ def phase3(dev, launches) -> dict:
     del idx, xb
     torch.cuda.empty_cache()
 
-    # (f) l2u8 on lossless int8 codes, no rescore
+    # (f) l2u8 on lossless int8 codes, no rescore: bulk-built (the upper
+    # hierarchy of ~125k nodes itself bulk-built, from the already shifted
+    # data), then served on the int8 tier
     xu, qu = u8_dataset(N_U8, NQ_TIERS, DIM, np.random.default_rng(7))
     t0 = time.time()
-    idx = HNSWIndex("l2u8", dim=DIM, m=M, ef_construction=EF_C, device=dev)
-    idx.add_items(xu)
-    log(f"[phase3] host build l2u8 N={N_U8}: {time.time() - t0:.1f}s")
+    idx = bulk_build(xu, space="l2u8", m=M, ef_construction=EF_C, device=dev)
+    out["f_build_s"] = time.time() - t0
+    log(f"[phase3] bulk_build l2u8 N={N_U8} d={DIM} M={M} efC={EF_C}: "
+        f"{out['f_build_s']:.1f}s, {len(idx.wave_log)} waves on "
+        f"{sorted(set(w['tier'] for w in idx.wave_log))}")
     st = idx._sync_device()
     need_u8 = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], DIM)
     del st
@@ -606,12 +815,19 @@ def phase3(dev, launches) -> dict:
     exact = ((xi[lab_f] - qi[:, None, :]) ** 2).sum(-1)
     if not np.array_equal(d_f.astype(np.float64), exact.astype(np.float64)):
         fail("(f) distances differ from the int64 distances")
+    del idx
+    torch.cuda.empty_cache()
     # the 10th exact distance per query, in float64 on the card (exact for
-    # integers this small), for a recall that counts ties
+    # integers this small), 64 queries at a time, for a recall that counts ties
     xg = torch.from_numpy(xu).to(dev).double()
-    qg = torch.from_numpy(qu).to(dev).double()
-    dd = (qg * qg).sum(-1)[:, None] + (xg * xg).sum(-1)[None, :] - 2.0 * qg @ xg.T
-    kth = torch.topk(dd, K, dim=-1, largest=False).values[:, -1].cpu().numpy()
+    xsq = (xg * xg).sum(-1)
+    kth = []
+    for s0 in range(0, len(qu), 64):
+        qg = torch.from_numpy(qu[s0 : s0 + 64]).to(dev).double()
+        dd = (qg * qg).sum(-1)[:, None] + xsq[None, :] - 2.0 * qg @ xg.T
+        kth.append(torch.topk(dd, K, dim=-1, largest=False).values[:, -1].cpu().numpy())
+    del xg, xsq, dd
+    kth = np.concatenate(kth)
     out["f"]["recall"] = rec = float(np.mean(exact <= kth[:, None]))
     log(f"[phase3] (f) l2u8 exact int8: distances equal int64 numpy, tie-aware "
         f"recall@10 {rec:.4f}")
@@ -624,18 +840,18 @@ def phase3(dev, launches) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_waves(name, idx, n_pad):
-    """The launch record of a bulk build: every wave on the split tier with
-    the split kernel launched in it, and every sync after the first a delta
-    unless more than n_pad // 2 rows were dirty (the rule for a full sync).
-    Returns the per-stage seconds summed over the waves."""
+def check_waves(name, idx, n_pad, tier="split"):
+    """The launch record of a bulk build: every wave on `tier`, on the split
+    tier with the split kernel launched in it, and every sync after the
+    first a delta unless more than n_pad // 2 rows were dirty (the rule for a
+    full sync). Returns the per-stage seconds summed over the waves."""
     waves = idx.wave_log
     if not waves:
         fail(f"({name}) no wave ran")
     for i, w in enumerate(waves):
-        if w["tier"] != "split":
-            fail(f"({name}) wave {i} ran on tier {w['tier']}, expected split")
-        if w["hop_dist_inline"] <= 0:
+        if w["tier"] != tier:
+            fail(f"({name}) wave {i} ran on tier {w['tier']}, expected {tier}")
+        if tier == "split" and w["hop_dist_inline"] <= 0:
             fail(f"({name}) wave {i} never launched hop_dist_inline")
         want_full = i == 0 or w["sync_refusal"] == "more than n_pad // 2 dirty rows"
         if (w["sync_mode"] == "full") != want_full or w["sync_mode"] not in ("full", "delta"):
@@ -644,8 +860,7 @@ def check_waves(name, idx, n_pad):
     modes = [w["sync_mode"] for w in waves]
     log(f"[phase4] ({name}) {len(waves)} waves, n_pad {n_pad}: "
         + ", ".join(f"{s[:-2]} {v:.1f}s" for s, v in stages.items())
-        + f"; syncs full {modes.count('full')} delta {modes.count('delta')}; "
-        f"hop_dist_inline launches {sum(w['hop_dist_inline'] for w in waves)}")
+        + f"; syncs full {modes.count('full')} delta {modes.count('delta')}")
     return stages
 
 
@@ -679,7 +894,7 @@ def profile_wave(idx, x, dev) -> dict:
     # device rows are kernels: their sum is the device time. For the list,
     # a PyTorch kernel is named by the operator that launched it (host rows
     # carry their own kernels' device time), this package's by its own name
-    dev_ms, kernels = 0.0, {}
+    dev_ms, kernels, hop_launches = 0.0, {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         on_device = e.device_type == torch.autograd.DeviceType.CUDA
@@ -688,6 +903,8 @@ def profile_wave(idx, x, dev) -> dict:
         if us and (not on_device or "hop_dist" in e.key):
             name = re.search(r"hop_dist\w*", e.key).group(0) if on_device else e.key
             kernels[name] = kernels.get(name, 0.0) + us / 1e3
+            if on_device:
+                hop_launches += e.count
     if dev_ms <= 0:
         log("[phase4] (h) wave profile: the profiler saw no device time: not measured")
         return {"wall_ms": wall_ms}
@@ -695,7 +912,11 @@ def profile_wave(idx, x, dev) -> dict:
         f"time {dev_ms:.0f} ms (busy share {dev_ms / wall_ms:.2f}), by operator:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[phase4]     {ms:8.1f} ms {ms / dev_ms:6.1%}  {name[:60]}")
-    return {"wall_ms": wall_ms, "device_ms": dev_ms}
+    hop_ms = sum(ms for name, ms in kernels.items() if name.startswith("hop_dist"))
+    log(f"[phase4] (h) the wave step's hop kernel: {hop_launches} launches, "
+        f"{hop_ms / max(hop_launches, 1):.4f} ms a launch")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "hop_launches": hop_launches,
+            "hop_ms_per_launch": hop_ms / max(hop_launches, 1)}
 
 
 def phase4(dev, launches, p2) -> dict:
@@ -703,13 +924,16 @@ def phase4(dev, launches, p2) -> dict:
 
     from hnsw_tpu_torch import BruteforceIndex, L2Space, SearchParams, bulk_build
     from hnsw_tpu_torch.core.graph import check_integrity, round_up
-    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
+    from hnsw_tpu_torch.models import hnsw as thnsw
+    from hnsw_tpu_torch.ops.gather_kernels import COUNTS, tier_bytes
 
     out = {}
 
-    def build(name, x, m=M):
+    def build(name, x, m=M, tier="split"):
         """bulk_build with the counts set to 0 just before and read just
-        after; the split kernel's launches go to the kernels line."""
+        after; the waves' hop kernel (the split hop, or the int8 hop on the
+        int8 tier) and its launches go to the kernels line."""
+        kernel = "hop_dist_inline" if tier == "split" else "hop_dist_unified8"
         torch.cuda.synchronize()
         COUNTS.reset()
         t0 = time.time()
@@ -717,12 +941,12 @@ def phase4(dev, launches, p2) -> dict:
         secs = time.time() - t0
         if COUNTS.plain_on_cuda:
             fail(f"({name}) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
-        if COUNTS.hop_dist_inline == 0:
-            fail(f"({name}) hop_dist_inline was never launched")
-        launches["hop_dist_inline"] += COUNTS.hop_dist_inline
-        stages = check_waves(name, idx, round_up(len(x) + 1, 128))
+        if getattr(COUNTS, kernel) == 0:
+            fail(f"({name}) {kernel} was never launched")
+        launches[kernel] += getattr(COUNTS, kernel)
+        stages = check_waves(name, idx, round_up(len(x) + 1, 128), tier)
         log(f"[phase4] ({name}) bulk_build N={len(x)} d={DIM} M={m} efC={EF_C}: {secs:.1f}s "
-            f"({len(x) / secs:.0f} inserts/s)")
+            f"({len(x) / secs:.0f} inserts/s), {kernel} launches {getattr(COUNTS, kernel)}")
         out[name] = {"build_s": secs, **stages, "waves": len(idx.wave_log)}
         return idx
 
@@ -740,6 +964,30 @@ def phase4(dev, launches, p2) -> dict:
         f"(host-built graph {host:.4f}), {qps_g:.0f} qps on the {idx._device.tier} tier")
     if rec < 0.95 or rec < host - 0.02:
         fail(f"(g) recall {rec} below 0.95 or more than 0.02 under the host-built {host}")
+    del idx
+
+    # (i) the same data with the waves past the split budget: SPLIT_MAX_BYTES
+    # below the split table and UNIFIED_MAX_BYTES at the int8 table's size
+    # put every wave on the int8 unified tier, whose hop is then launched at
+    # a wave's shape (B=16384, E=2); served afterwards on the default budgets
+    n_pad = round_up(len(x) + 1, 128)
+    saved = thnsw.UNIFIED_MAX_BYTES, thnsw.SPLIT_MAX_BYTES
+    thnsw.SPLIT_MAX_BYTES = 0
+    thnsw.UNIFIED_MAX_BYTES = tier_bytes(n_pad, max(16, round_up(2 * M, 16)), DIM)["unified8"]
+    try:
+        idx = build("i", x, tier="unified8")
+    finally:
+        thnsw.UNIFIED_MAX_BYTES, thnsw.SPLIT_MAX_BYTES = saved
+    check_integrity(idx.graph, require_inbound=False)
+    if idx.rebuild_device_tables().tier != "unified":
+        fail(f"(i) the finished index serves tier {idx._device.tier}, expected unified")
+    _, lab_i, _, c_i = run_mode(idx, "i", q, 2, launches, k=K, ef=200)
+    need_launch("i", c_i, "hop_dist_unified")
+    out["i"]["recall"] = rec_i = recall(lab_i, gt)
+    log(f"[phase4] (i) graph integrity ok; recall@10 at ef=200, 1024 queries: {rec_i:.4f} "
+        f"((g): {rec:.4f})")
+    if rec_i < 0.95 or abs(rec_i - rec) > 0.02:
+        fail(f"(i) recall {rec_i} below 0.95 or more than 0.02 from (g)'s {rec}")
     del idx
 
     # (w) a wide graph, M=32 (m0=64), on the first 30k of the same data: its
@@ -843,9 +1091,9 @@ def main() -> int:
                                 "bulk_build": p4, "seconds": time.time() - t_start,
                                 "device": smi}}))
     rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
-        ("hop_dist_unified", "hop_bf16", "hop_dist_unified.cu", "pallas_gather.py:795"),
+        ("hop_dist_unified", "hop_bf16", "hop_ring.cuh", "pallas_gather.py:795"),
         ("gather_dist_rows", "gather_f32", "gather_dist.cu", "pallas_gather.py:1051"),
-        ("hop_dist_unified8", "hop_int8", "hop_dist_quant.cu", "pallas_gather.py:795"),
+        ("hop_dist_unified8", "hop_int8", "hop_ring.cuh", "pallas_gather.py:795"),
         ("hop_dist_unified4", "hop_int4", "hop_dist_quant.cu", "pallas_gather.py:795"),
         ("gather_dist_bf16", "gather_bf16", "gather_dist_bf16.cu", "pallas_gather.py:1026"),
         ("hop_dist_inline", "hop_inline", "hop_dist_inline.cu", "pallas_gather.py:214"),
@@ -859,6 +1107,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # rows 1 and 3 timed cold (fresh blocks per launch): B=1024 E=1, B=8192 E=2
+            **{k: r[k] for k in ("cold_ms", "cold_b8192_ms") if k in r},
         })
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -19,21 +19,25 @@
 // H100 SXM's 3.35 TB/s. The arithmetic (4 flops per code) is far below the
 // compute roof.
 //
-// Design: the shape of hop_dist_unified.cu. One block of 8 warps per query,
-// the query staged once in shared memory as f32 and reused for all E*m0
-// rows. int8: one warp per neighbor row; each lane loads one 4-byte word
-// (4 codes) per step, so at d_pad=128 the warp reads its 128-byte row in one
-// coalesced load. int4: a row is half as long, so a half-warp takes a row
-// (two rows per warp), each lane loading one word (8 nibbles) per step. A
-// code is sign-extended with a shift pair, (int)(w << (W - b*(k+1))) >> (W - b)
-// for a b-bit field, as the TPU kernel does (:722). The slot's scale is one
-// broadcast read per row. Lanes accumulate in f32 and reduce with
-// __shfl_xor_sync inside their row group; the group's first lane writes the
-// distance and copies the payload id. A chosen id outside [0, R) reads
-// nothing and yields NaN and id -1; the traversal never passes one.
+// int8: the node-block ring of hop_ring.cuh (TMA bulk copies of whole
+// blocks, codes, scales and ids, into a shared-memory ring; a half-warp per
+// row reads 8 codes per lane per step from shared memory).
+//
+// int4: one block of 8 warps per query, the query staged once in shared
+// memory as f32 and reused for all E*m0 rows. A row is half as long as an
+// int8 row, so a half-warp takes a row (two rows per warp), each lane
+// loading one word (8 nibbles) per step. A code is sign-extended with a
+// shift pair, (int)(w << (32 - 4*(k+1))) >> 28, as the TPU kernel does
+// (:722). The slot's scale is one broadcast read per row. Lanes accumulate
+// in f32 and reduce with __shfl_xor_sync inside their half; the half's first
+// lane writes the distance and copies the payload id. A chosen id outside
+// [0, R) reads nothing and yields NaN and id -1; the traversal never passes
+// one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hop_ring.cuh"
 
 namespace {
 
@@ -46,19 +50,19 @@ __device__ __forceinline__ float accum(float acc, float r, float q) {
   return fmaf(t, t, acc);
 }
 
-// kBits = 8: 32 lanes per row, 4 codes per 32-bit word (byte k = code 4c+k).
-// kBits = 4: 16 lanes per row, 8 codes per word (nibble k = code 8c+k).
-template <int kBits, bool kIP>
+// 16 lanes per row, 8 codes per 32-bit word (nibble k = code 8c+k).
+template <bool kIP>
 __global__ void __launch_bounds__(kWarps * 32)
-hop_dist_quant_kernel(const float* __restrict__ q,          // [B, d_pad]
-                      const uint32_t* __restrict__ codes,   // [R, m0, d_pad*kBits/32] words
-                      const float* __restrict__ scales,     // [R, m0]
-                      const int32_t* __restrict__ payload,  // [R, m0]
-                      const int32_t* __restrict__ chosen,   // [B, E]
-                      float* __restrict__ out_d,            // [B, E*m0]
-                      int32_t* __restrict__ out_ids,        // [B, E*m0]
-                      int E, int m0, int d_pad, long long R) {
-  constexpr int kGroup = kBits == 8 ? 32 : 16;  // lanes per row
+hop_dist_int4_kernel(const float* __restrict__ q,          // [B, d_pad]
+                     const uint32_t* __restrict__ codes,   // [R, m0, d_pad/8] words
+                     const float* __restrict__ scales,     // [R, m0]
+                     const int32_t* __restrict__ payload,  // [R, m0]
+                     const int32_t* __restrict__ chosen,   // [B, E]
+                     float* __restrict__ out_d,            // [B, E*m0]
+                     int32_t* __restrict__ out_ids,        // [B, E*m0]
+                     int E, int m0, int d_pad, long long R) {
+  constexpr int kBits = 4;
+  constexpr int kGroup = 16;                    // lanes per row
   constexpr int kRowsPerWarp = 32 / kGroup;
   constexpr int kPerWord = 32 / kBits;          // codes per word
   extern __shared__ __align__(16) float q_s[];  // [d_pad]
@@ -118,10 +122,9 @@ hop_dist_quant_kernel(const float* __restrict__ q,          // [B, d_pad]
   }
 }
 
-template <int kBits>
-int launch(const void* q, const void* codes, const void* scales, const void* payload,
-           const void* chosen, void* out_d, void* out_ids, int B, int E, int m0, int d_pad,
-           long long R, int ip, void* stream) {
+int launch_int4(const void* q, const void* codes, const void* scales, const void* payload,
+                const void* chosen, void* out_d, void* out_ids, int B, int E, int m0, int d_pad,
+                long long R, int ip, void* stream) {
   if (B > 0) {
     const dim3 grid(B), block(kWarps * 32);
     const size_t smem = (size_t)d_pad * sizeof(float);
@@ -134,11 +137,11 @@ int launch(const void* q, const void* codes, const void* scales, const void* pay
     auto* od = static_cast<float*>(out_d);
     auto* oi = static_cast<int32_t*>(out_ids);
     if (ip) {
-      hop_dist_quant_kernel<kBits, true><<<grid, block, smem, s>>>(qf, cw, sc, pl, ch, od, oi,
-                                                                   E, m0, d_pad, R);
+      hop_dist_int4_kernel<true><<<grid, block, smem, s>>>(qf, cw, sc, pl, ch, od, oi, E, m0,
+                                                           d_pad, R);
     } else {
-      hop_dist_quant_kernel<kBits, false><<<grid, block, smem, s>>>(qf, cw, sc, pl, ch, od, oi,
-                                                                    E, m0, d_pad, R);
+      hop_dist_int4_kernel<false><<<grid, block, smem, s>>>(qf, cw, sc, pl, ch, od, oi, E, m0,
+                                                            d_pad, R);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -152,14 +155,14 @@ extern "C" int hop_dist_unified_int8(const void* q, const void* codes, const voi
                                      const void* payload, const void* chosen, void* out_d,
                                      void* out_ids, int B, int E, int m0, int d_pad,
                                      long long R, int ip, void* stream) {
-  return launch<8>(q, codes, scales, payload, chosen, out_d, out_ids, B, E, m0, d_pad, R, ip,
-                   stream);
+  return hop_ring::launch<hop_ring::kInt8>(q, codes, scales, payload, chosen, out_d, out_ids, B,
+                                           E, m0, d_pad, R, ip, stream);
 }
 
 extern "C" int hop_dist_unified_int4(const void* q, const void* codes, const void* scales,
                                      const void* payload, const void* chosen, void* out_d,
                                      void* out_ids, int B, int E, int m0, int d_pad,
                                      long long R, int ip, void* stream) {
-  return launch<4>(q, codes, scales, payload, chosen, out_d, out_ids, B, E, m0, d_pad, R, ip,
-                   stream);
+  return launch_int4(q, codes, scales, payload, chosen, out_d, out_ids, B, E, m0, d_pad, R, ip,
+                     stream);
 }

@@ -472,9 +472,10 @@ def bulk_build(
     # Wave tier, decided here in the open. The split table when it fits: its
     # row delta is one bf16 row gather and scatter, so the unified budget is
     # clamped to UNIFIED_WAVE_MAX_BYTES and the ladder falls to the split
-    # rung. Past the split budget the serving budget stands (a unified rung,
-    # int8 at the sizes where bf16 does not fit either) without the upper
-    # descent tables. Where no rung fits, the first wave's sync raises
+    # rung. Past the split budget (the index's split_max_bytes, else
+    # hnsw.SPLIT_MAX_BYTES, else the free share: read here, at call time)
+    # the serving budget stands (a unified rung, int8 at the sizes where bf16
+    # does not fit either) without the upper descent tables. Where no rung fits, the first wave's sync raises
     # (build_inline_tables); the waves search through row gathers only on an
     # index made with inline_neighbors off (M > 64). Each wave's verbose line
     # and wave_log entry name the tier it ran on.

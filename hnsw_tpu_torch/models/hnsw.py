@@ -10,7 +10,9 @@ mutation after the first sync is applied to the live tensors as row deltas
 embed them); growth past the padded capacity resyncs in full.
 
 The row deltas write the device tensors in place: a caller that kept the
-state of an earlier sync sees its tensors change.
+state of an earlier sync sees its tensors change. A delta that fails midway
+drops the device state, so no caller sees it half written: out of memory,
+the same sync is full; on any other error the next one is.
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ from hnsw_tpu_torch.ops.traversal import SearchResults, search_batch
 # Share of the card's free memory the unified tables may take; the rest is
 # left for the search's working set ([B, ef] beams, [B, EM, ef] dedup masks).
 UNIFIED_FREE_SHARE = 0.8
+# Budgets in bytes of the unified tiers' and the split tier's tables for an
+# index whose own budget (unified_max_bytes, split_max_bytes) is None; None
+# takes UNIFIED_FREE_SHARE of the free memory. Read at each sync and by
+# bulk_build's choice of the waves' tier, as the JAX package reads its
+# constants of the same names (which hold a TPU's budgets).
+UNIFIED_MAX_BYTES: int | None = None
+SPLIT_MAX_BYTES: int | None = None
 # Bulk-build waves clamp the unified budget to this, so they run the split
 # tier: its row delta is one bf16 row gather and scatter.
 UNIFIED_WAVE_MAX_BYTES = 0
@@ -236,9 +245,10 @@ class HNSWIndex:
         if inline_neighbors is None:
             inline_neighbors = True
         self.inline_neighbors = bool(inline_neighbors) and 2 * m <= 128
-        # None: UNIFIED_FREE_SHARE of the card's free memory (no limit on
-        # the CPU); the ladder picks bf16, else int8, else int4, else the
-        # split table under split_max_bytes (None: the same share)
+        # None: UNIFIED_MAX_BYTES, and if that is None UNIFIED_FREE_SHARE of
+        # the card's free memory (no limit on the CPU); the ladder picks bf16,
+        # else int8, else int4, else the split table under split_max_bytes
+        # (None: SPLIT_MAX_BYTES, else the same share)
         self.unified_max_bytes: int | None = None
         self.split_max_bytes: int | None = None
         # False drops the per-level descent tables (the search then descends
@@ -376,13 +386,15 @@ class HNSWIndex:
         return None
 
     def _unified_budget(self) -> int | None:
-        if self.unified_max_bytes is not None:
-            return self.unified_max_bytes
+        for cap in (self.unified_max_bytes, UNIFIED_MAX_BYTES):
+            if cap is not None:
+                return cap
         return self._free_share()
 
     def _split_budget(self) -> int | None:
-        if self.split_max_bytes is not None:
-            return self.split_max_bytes
+        for cap in (self.split_max_bytes, SPLIT_MAX_BYTES):
+            if cap is not None:
+                return cap
         return self._free_share()
 
     def _full_sync(self) -> None:
@@ -482,19 +494,29 @@ class HNSWIndex:
             new_ids[n_new : n_new + n_upd] = vec_ids
 
         dev = self.device
-        # bounded slices; the new vectors ride the first
-        for si, s0 in enumerate(range(0, k, DELTA_CHUNK) or [0]):
-            ids_c = dirty_ids[s0 : s0 + DELTA_CHUNK]
-            rows_c = rows[s0 : s0 + DELTA_CHUNK]
-            first = si == 0
-            _apply_row_deltas(
-                st,
-                torch.from_numpy(new_vecs if first else new_vecs[:0]).to(dev),
-                torch.from_numpy(new_ids if first else new_ids[:0]).to(dev),
-                torch.from_numpy(ids_c).to(dev),
-                torch.from_numpy(rows_c).to(dev),
-                exact_i8=self.space.exact_i8,
-            )
+        # bounded slices; the new vectors ride the first. The engine's dirty
+        # lists are drained by now, so a delta that fails midway cannot be
+        # retried: the half-written state is dropped, and the sync is full
+        try:
+            for si, s0 in enumerate(range(0, k, DELTA_CHUNK) or [0]):
+                ids_c = dirty_ids[s0 : s0 + DELTA_CHUNK]
+                rows_c = rows[s0 : s0 + DELTA_CHUNK]
+                first = si == 0
+                _apply_row_deltas(
+                    st,
+                    torch.from_numpy(new_vecs if first else new_vecs[:0]).to(dev),
+                    torch.from_numpy(new_ids if first else new_ids[:0]).to(dev),
+                    torch.from_numpy(ids_c).to(dev),
+                    torch.from_numpy(rows_c).to(dev),
+                    exact_i8=self.space.exact_i8,
+                )
+        except torch.cuda.OutOfMemoryError:
+            self._device = self._landmark_cache = None
+            return refuse("delta ran out of memory")
+        except BaseException:
+            # the next sync is full: no caller sees the half-written state
+            self._device = self._landmark_cache = None
+            raise
 
         labels_np = st.labels
         labels_changed = n_new > 0

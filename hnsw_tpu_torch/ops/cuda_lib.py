@@ -4,7 +4,8 @@ Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a plain
 C interface, ``hnsw_tpu_torch/_build/libhnsw_kernels.so``, loaded with
 ctypes. The build runs at first use (never at import: the CPU tests import
-every module) and again when a source is newer than the library. The
+every module) and again when a source or a header (``csrc/*.cuh``) is newer
+than the library. The
 compiler's output, including ``-Xptxas -v`` register and spill counts, is
 kept in ``_build/libhnsw_kernels.log``.
 """
@@ -36,13 +37,17 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    """The sources and the headers they include: a change to either rebuilds."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _compile(tmp: str) -> None:
     nvcc = _nvcc()
     objs, procs = [], []
     for src in _sources():
+        if not src.endswith(".cu"):
+            continue
         obj = f"{tmp}.{os.path.basename(src)}.o"
         cmd = [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", "-c", src, "-o", obj]

@@ -18,7 +18,8 @@
   else split).
 - ``hop_dist_unified``: distances from each query to the neighbors of its
   chosen nodes, read from a unified table of any tier
-  (csrc/hop_dist_unified.cu, csrc/hop_dist_quant.cu).
+  (csrc/hop_dist_unified.cu, csrc/hop_dist_quant.cu; the bf16 and int8
+  tiers share the node-block ring of csrc/hop_ring.cuh).
 - ``hop_dist_inline``: the same on the split tier (csrc/hop_dist_inline.cu).
 - ``gather_dist_rows``: distances from each query to K rows of the f32 or
   bf16 vector table, the exact rescore (csrc/gather_dist.cu,
@@ -555,7 +556,14 @@ def hop_dist_unified(
         raise ValueError(f"hop_dist_unified: unsupported d_pad {table.d_pad}")
     b, e = chosen.shape
     m0 = table.m0
-    qp = F.pad(q, (0, table.d_pad - q.shape[1])).contiguous()
+    if kind != "int4" and m0 % 4:
+        # the bf16 and int8 kernels copy ids and rows in 16-byte multiples
+        raise ValueError(f"hop_dist_unified: {kind} table m0 {m0} is not a multiple of 4")
+    # padded only when narrower than the table: a pad is a copy kernel per call
+    qp = q if q.shape[1] == table.d_pad else F.pad(q, (0, table.d_pad - q.shape[1]))
+    qp = qp.contiguous()
+    if qp.data_ptr() % 16:  # the query row is a bulk copy too
+        qp = qp.clone()
     ch = chosen.contiguous()
     out_d = torch.empty((b, e * m0), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, e * m0), dtype=torch.int32, device=dev)
@@ -641,7 +649,9 @@ def hop_dist_inline(
     if d_pad % 8 or d_pad * 4 > 48 * 1024:
         raise ValueError(f"hop_dist_inline: unsupported d_pad {d_pad}")
     b, e = chosen.shape
-    qp = F.pad(q, (0, d_pad - q.shape[1])).contiguous()
+    # padded only when narrower than the table: a pad is a copy kernel per call
+    qp = q if q.shape[1] == d_pad else F.pad(q, (0, d_pad - q.shape[1]))
+    qp = qp.contiguous()
     ch = chosen.contiguous()
     out_d = torch.empty((b, e * m0), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, e * m0), dtype=torch.int32, device=dev)

@@ -20,11 +20,14 @@ import hnsw_tpu.models.hnsw as jhnsw
 from hnsw_tpu.ops.traversal import search_batch as j_search
 
 import hnsw_tpu_torch.models.bulk_build as tbb
-from hnsw_tpu_torch.core.graph import check_integrity
+import hnsw_tpu_torch.models.hnsw as thnsw
+from hnsw_tpu_torch.convert import index_from_parts
+from hnsw_tpu_torch.core.graph import check_integrity, round_up
 from hnsw_tpu_torch.core.spaces import L2Space
 from hnsw_tpu_torch.models.bruteforce import BruteforceIndex
 from hnsw_tpu_torch.models.hnsw import HNSWIndex
 from hnsw_tpu_torch.native.hnsw_builder import NativeHNSWBuilder
+from hnsw_tpu_torch.ops.gather_kernels import tier_bytes
 
 D = 24
 
@@ -221,8 +224,6 @@ def test_bulk_build_matches_jax(jax_waves_on_split):
     # sums, every later wave differs: the graphs are then held to serve the
     # same recall
     if not np.array_equal(gt_.level0, gj.level0):
-        from hnsw_tpu_torch.convert import index_from_parts
-
         meta = {"space": "l2", "dim": D, "m": 8, "ef_construction": 48}
         jt = index_from_parts(gj, j._builder.export_vectors(), None, meta, device="cpu")
         differ = np.flatnonzero((gt_.level0 != gj.level0).any(1))
@@ -331,3 +332,74 @@ def test_bulk_build_seeded_waves_and_wide_m(monkeypatch):
     check_integrity(wide.graph, require_inbound=False)
     _, lab = wide.search(q, k=10, ef=100)
     assert wide._device.tier == "unified" and _recall(lab, gt) >= 0.9
+
+
+def test_bulk_build_past_the_split_budget_waves_on_int8(jax_waves_on_split, monkeypatch):
+    """Both packages' SPLIT_MAX_BYTES below the split table and
+    UNIFIED_MAX_BYTES at the int8 table's size (each package's own count):
+    the waves fall to the int8 unified tier, without the upper descent
+    tables, and sync by row deltas; the port takes JAX's tier and sync
+    sequence, and the two graphs serve recall within 0.02."""
+    x = _data(600, seed=0)
+    n_pad, m0 = round_up(600 + 1, 128), 16
+    monkeypatch.setattr(thnsw, "SPLIT_MAX_BYTES", 0)
+    monkeypatch.setattr(thnsw, "UNIFIED_MAX_BYTES", tier_bytes(n_pad, m0, D)["unified8"])
+    monkeypatch.setattr(jhnsw, "SPLIT_MAX_BYTES", 0)
+    # the JAX ladder's int8 count (its lane width 128, scales in the block)
+    monkeypatch.setattr(jhnsw, "UNIFIED_MAX_BYTES",
+                        n_pad * ((m0 * 128 // 512 + 1) * 512 + 128 + 4))
+    kw = dict(m=8, ef_construction=48, first_wave=128)
+    t = tbb.bulk_build(x, device="cpu", **kw)
+    j = jbb.bulk_build(x, **kw)
+    log = t.wave_log
+    assert [(w["tier"], w["sync_mode"]) for w in log] == jax_waves_on_split
+    assert [w["tier"] for w in log] == ["unified8"] * 3
+    assert [w["sync_mode"] for w in log] == ["full", "delta", "full"]
+    assert (t.unified_max_bytes, t.split_max_bytes, t.upper_inline) == (None, None, True)
+    check_integrity(t.graph, require_inbound=False)
+    q = x[:64] + 0.01 * _data(64, seed=1)
+    gt = _oracle_gt(x, q)
+    meta = {"space": "l2", "dim": D, "m": 8, "ef_construction": 48}
+    jt = index_from_parts(j.graph, j._builder.export_vectors(), None, meta, device="cpu")
+    r_t, r_j = (_recall(idx.search(q, k=10, ef=100)[1], gt) for idx in (t, jt))
+    assert t._device.tier == "unified8"  # the constant still holds the serving budget
+    assert r_t >= 0.9 and abs(r_t - r_j) <= 0.02, (r_t, r_j)
+
+
+def test_bulk_build_recursive_upper_u8(jax_waves_on_split):
+    """l2u8 with the recursive upper phase (upper_recurse_min=50), against the
+    JAX package (the reference's tests/test_u8_space.py regression): the sub-
+    build is handed the already shifted data and must not shift it again.
+    Both give the same levels and the same tiers and syncs; served on the
+    lossless int8 tier the port's distances equal the int64 ones, and the
+    two graphs serve tie-aware recall within 0.02."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, size=(1200, 32)).astype(np.uint8)
+    q = rng.integers(0, 256, size=(16, 32)).astype(np.uint8)
+    kw = dict(space="l2u8", m=8, ef_construction=64, first_wave=256, upper_recurse_min=50)
+    t = tbb.bulk_build(x, device="cpu", **kw)
+    j = jbb.bulk_build(x, **kw)
+    assert t.space.persist_name == "l2u8" and t.space.exact_i8 and t.num_elements == 1200
+    g = t.graph
+    assert g.max_level >= 2
+    np.testing.assert_array_equal(g.node_level, j.graph.node_level)
+    np.testing.assert_array_equal(np.sort(g.labels), np.arange(1200))
+    check_integrity(g, require_inbound=False)
+    # the main build's waves (JAX's list also holds its sub-builds' syncs)
+    modes = [(w["tier"], w["sync_mode"]) for w in t.wave_log]
+    assert modes == jax_waves_on_split[-len(modes):]
+    xi, qi = x.astype(np.int64), q.astype(np.int64)
+    exact = ((qi[:, None, :] - xi[None, :, :]) ** 2).sum(-1)
+    kth = np.sort(exact, axis=1)[:, 9]
+    meta = {"space": "l2u8", "dim": 32, "m": 8, "ef_construction": 64}
+    jt = index_from_parts(j.graph, j._builder.export_vectors(), None, meta, device="cpu")
+    recalls = []
+    for idx in (t, jt):
+        n_pad = round_up(1200 + 1 + 1200 // 16, 128)
+        idx.unified_max_bytes = tier_bytes(n_pad, 16, 32)["unified8"]
+        d, lab = idx.search(q, k=10, ef=200)
+        assert idx._device.tier == "unified8" and (lab >= 0).all()
+        got = np.take_along_axis(exact, lab, axis=1)
+        np.testing.assert_array_equal(d.astype(np.float64), got.astype(np.float64))
+        recalls.append(float(np.mean(got <= kth[:, None])))
+    assert recalls[0] >= 0.9 and abs(recalls[0] - recalls[1]) <= 0.02, recalls

@@ -234,3 +234,72 @@ def test_gather_kernel_matches_plain_on_cuda(cuda_device, space):
     torch.cuda.synchronize()
     scale = (q * q).sum(-1, keepdim=True) + (x * x).sum(-1)[ids.long()]
     assert bool(((dk - dp).abs() <= 1e-5 * dp.abs() + 1e-5 * scale).all())
+
+
+def _ring_table(rng, tier, rows, m0, d, dev):
+    """A random unified table: bf16 vectors, int8 codes with scales, or l2u8's
+    lossless scale-1 codes ("u8")."""
+    d_pad = -(-d // 8) * 8
+    payload = torch.from_numpy(rng.integers(0, 1 << 30, (rows, m0)).astype(np.int32))
+    if tier == "bf16":
+        vecs = torch.from_numpy(rng.normal(size=(rows, m0, d_pad)).astype(np.float32))
+        vecs[:, :, d:] = 0
+        return gk.UnifiedTable(vecs.to(torch.bfloat16).to(dev), payload.to(dev))
+    codes = rng.integers(-128 if tier == "u8" else -127, 128, (rows, m0, d_pad)).astype(np.int8)
+    codes[:, :, d:] = 0
+    scales = np.ones((rows, m0), np.float32) if tier == "u8" else rng.uniform(
+        0.01, 0.1, (rows, m0)).astype(np.float32)
+    return gk.Unified8Table(torch.from_numpy(codes).to(dev), torch.from_numpy(scales).to(dev),
+                            payload.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "int8", "u8"])
+@pytest.mark.parametrize("m0", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("e,b", [(1, 48), (2, 48), (4, 48), (4, 4096)])
+def test_hop_ring_shapes_on_cuda(cuda_device, tier, m0, d, e, b):
+    """The bf16 and int8 hop kernels (the node-block ring) at every shape
+    the wrapper takes, B*E far below (B=48) and far above (B=4096, E=4) the
+    persistent grid, with chosen ids out of range (NaN, id -1). l2u8's
+    scale-1 codes against integer queries give the int64 distances."""
+    rng = np.random.default_rng(m0 + d + e)
+    rows = 2048
+    table = _ring_table(rng, tier, rows, m0, d, cuda_device)
+    if tier == "u8":
+        q = torch.from_numpy(rng.integers(-128, 128, (b, d)).astype(np.float32))
+    else:
+        q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    chosen = rng.integers(0, rows, (b, e)).astype(np.int32)
+    chosen[0, 0], chosen[1, e - 1], chosen[2, 0] = -1, rows, rows - 1
+    q, chosen = q.to(cuda_device), torch.from_numpy(chosen).to(cuda_device)
+    ok = (chosen >= 0) & (chosen < rows)
+    bad = (~ok).repeat_interleave(m0, dim=1)
+    for space in ("l2",) if tier == "u8" else ("l2", "ip"):
+        dk, ik = gk.hop_dist_unified(q, table, chosen, space)
+        dp, ip_ = gk.hop_dist_unified_plain(q, table, torch.where(ok, chosen, 0), space)
+        torch.cuda.synchronize()
+        assert torch.equal(ik, ip_.masked_fill(bad, -1))
+        assert torch.equal(torch.isnan(dk), bad)
+        torch.testing.assert_close(dk[~bad], dp[~bad], rtol=1e-5, atol=1e-4)
+        if tier == "u8":
+            codes = table.codes[torch.where(ok, chosen, 0).long()][..., :d].long()
+            ref = ((codes - q.long()[:, None, None, :]) ** 2).sum(-1).reshape(b, -1)
+            assert torch.equal(dk[~bad].long(), ref[~bad])
+            assert torch.equal(dk[~bad], ref[~bad].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+def test_hop_ring_widest_row_on_cuda(cuda_device, tier):
+    """d_pad = 12288, the widest row the wrapper takes: a piece of 2 rows and
+    a ring past 48 KB of shared memory."""
+    rng = np.random.default_rng(3)
+    table = _ring_table(rng, tier, 64, 16, 12288, cuda_device)
+    q = torch.from_numpy(rng.normal(size=(8, 12288)).astype(np.float32)).to(cuda_device)
+    chosen = torch.from_numpy(rng.integers(0, 64, (8, 2)).astype(np.int32)).to(cuda_device)
+    dk, ik = gk.hop_dist_unified(q, table, chosen)
+    dp, ip_ = gk.hop_dist_unified_plain(q, table, chosen)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip_)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)

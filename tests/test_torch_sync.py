@@ -360,3 +360,49 @@ def test_delta_keeps_no_stale_landmarks_and_clear_resets():
     d, lab = t.search(x[:3], k=1, ef=20)
     assert t._last_sync_mode == "full"
     np.testing.assert_array_equal(lab[:, 0], [100, 101, 102])
+
+
+@pytest.mark.parametrize("kind", ["split", "unified", "unified8"])
+@pytest.mark.parametrize("error", ["out_of_memory", "other"])
+def test_delta_failing_midway_leaves_no_half_written_state(kind, error, monkeypatch):
+    """A delta that raises after writing part of its rows, with the engine's
+    dirty lists already drained: out of memory, the same sync drops the
+    state and runs in full; on any other error the state is dropped, the
+    error reaches the caller and the next sync is full. Either way the state
+    and the search results equal a fresh full sync's of the same graph."""
+    monkeypatch.setattr(thnsw, "DELTA_CHUNK", 16)  # several slices
+    t, _ = _pair(kind)
+    x, extra = _data(N), _data(30, seed=5)
+    t._builder.add_batch(x, np.arange(N), n_threads=1)
+    t._sync_device()
+    t._builder.add_batch(extra, np.arange(N, N + 30), n_threads=1)
+    t._dirty = True
+    real, calls = thnsw._apply_row_deltas, []
+
+    def fails_in_second_slice(st, new_vecs, new_ids, dirty_ids, dirty_rows, **kw):
+        calls.append(dirty_ids.shape[0])
+        if len(calls) < 2:
+            return real(st, new_vecs, new_ids, dirty_ids, dirty_rows, **kw)
+        h = dirty_ids.shape[0] // 2  # half of this slice's rows, then the error
+        real(st, new_vecs, new_ids, dirty_ids[:h], dirty_rows[:h], **kw)
+        if error == "out_of_memory":
+            raise torch.cuda.OutOfMemoryError("simulated: out of memory in a delta slice")
+        raise RuntimeError("simulated: a delta slice failed")
+
+    monkeypatch.setattr(thnsw, "_apply_row_deltas", fails_in_second_slice)
+    q = np.concatenate([x[20:32], extra[:4]])
+    if error == "out_of_memory":
+        d1, l1 = t.search(q, k=3, ef=40)
+        assert t._last_sync_refusal == "delta ran out of memory"
+    else:
+        with pytest.raises(RuntimeError, match="a delta slice failed"):
+            t.search(q, k=3, ef=40)
+        assert t._device is None and t._landmark_cache is None and t._dirty
+        d1, l1 = t.search(q, k=3, ef=40)
+    assert t._last_sync_mode == "full" and len(calls) == 2 and calls[1] > 1
+    np.testing.assert_array_equal(l1[12:, 0], np.arange(N, N + 4))
+    state = _port_state(t)
+    _assert_states_equal(state, _rebuilt(t))
+    d2, l2 = t.search(q, k=3, ef=40)
+    np.testing.assert_array_equal(l1, l2)
+    np.testing.assert_array_equal(d1, d2)
