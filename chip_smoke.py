@@ -5,7 +5,10 @@
 Phase 0  the device: name and power limit; CUDA is required (no CPU path).
 Phase 1  builds the CUDA kernels from hnsw_tpu_torch/csrc and holds each
          against its plain PyTorch version on the card, at the main path's
-         shapes, with times from CUDA events.
+         shapes and in sweeps over every shape the wrappers take (the hops
+         of the node-block ring, the two gathers), with times from CUDA
+         events: warm, and cold (a fresh `chosen` or `ids` per launch on
+         tables far past the L2) for every hop and gather row.
 Phase 2  the main path at bench.py's operating point (N=100k clustered
          vectors, d=128, M=16, efC=200, k=10): host build, device sync, then
          (a) the seeded speed mode at batch 8192, (b) the default descent at
@@ -207,7 +210,7 @@ def phase1(dev) -> dict:
     # times repeat one `chosen` 20 times, so a B=1024 launch (~8.5 MB of
     # bf16 blocks) is served from the L2 from its second repeat on: they are
     # warm times, kept to stand beside earlier runs'. cold_cases() times
-    # rows 1 and 3 the way the main path reads memory.
+    # rows 1, 3 and 4 the way the main path reads memory.
     for tier in ("bf16", "int8", "int4"):
         cases = [
             hop_case(tier, 1024, 1, 32, 128, "l2", 16384, True),
@@ -322,13 +325,7 @@ def phase1(dev) -> dict:
         dp = gk.gather_dist_rows_plain(q, table, ids, space)
         torch.cuda.synchronize()
         tag = f"gather {str(dtype)[6:]} B={b} K={kk} d={d} {space}"
-        if dtype == torch.float32:
-            # the norm-expansion form cancels: atol scales with |q|^2 + |x|^2
-            scale = (q * q).sum(-1, keepdim=True) + (table * table).sum(-1)[ids.long()]
-            bad = (dk - dp).abs() > 1e-5 * dp.abs() + 1e-5 * scale
-        else:  # direct difference
-            bad = ~torch.isclose(dk, dp, rtol=1e-5, atol=1e-4)
-        if bool(bad.any()):
+        if bool(gather_bad(q, table, ids, dk, dp).any()):
             fail(f"{tag}: dists differ")
         err = float((dk - dp).abs().max())
         msg = f"[phase1] {tag}: ok, max_abs_err {err:.3e}"
@@ -347,20 +344,26 @@ def phase1(dev) -> dict:
         log(msg)
         return res
 
+    # warm, like the hop's cases above (one `ids` repeated over a 200,000-row
+    # table that the L2 holds); gather_cold_cases() times rows 2 and 5 cold
     for name, dtype in (("gather_f32", torch.float32), ("gather_bf16", torch.bfloat16)):
         cases = [
             gather_case(dtype, 1024, 40, 128, "l2", 200_000, True),
             gather_case(dtype, 1024, 40, 128, "ip", 200_000, False),
         ]
         out[name] = dict(cases[0], max_abs_err=max(c["err"] for c in cases))
+    for name, err in gather_sweep(dev, gen).items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    for name, res in gather_cold_cases(dev, gen).items():
+        out[name].update(res)
     torch.cuda.empty_cache()  # phase 1's tables are gone: the card is free again
     return out
 
 
 def dev_table(dev, gen, tier, rows, m0, d, exact=False):
-    """A random unified table ("bf16" or "int8") made on the card: the
-    largest is 8.6 GB, too large to draw on the host. `exact` gives l2u8's
-    lossless scale-1 codes."""
+    """A random unified table ("bf16", "int8" or "int4") made on the card:
+    the largest is 8.6 GB, too large to draw on the host. `exact` gives
+    l2u8's lossless scale-1 codes."""
     import torch
 
     from hnsw_tpu_torch.ops import gather_kernels as gk
@@ -372,30 +375,35 @@ def dev_table(dev, gen, tier, rows, m0, d, exact=False):
         vecs = torch.randn((rows, m0, d_pad), generator=gen, device=dev, dtype=torch.bfloat16)
         vecs[:, :, d:] = 0
         return gk.UnifiedTable(vecs, payload)
-    codes = torch.randint(-128 if exact else -127, 128, (rows, m0, d_pad), generator=gen,
-                          device=dev, dtype=torch.int8)
+    lo, hi = (-128, 127) if exact else (-127, 127) if tier == "int8" else (-7, 7)
+    codes = torch.randint(lo, hi + 1, (rows, m0, d_pad), generator=gen, device=dev,
+                          dtype=torch.int8)
     codes[:, :, d:] = 0
     if exact:
         scales = torch.ones((rows, m0), device=dev)
     else:
         scales = 0.01 + 0.09 * torch.rand((rows, m0), generator=gen, device=dev)
-    return gk.Unified8Table(codes, scales, payload)
+    if tier == "int8":
+        return gk.Unified8Table(codes, scales, payload)
+    return gk.Unified4Table(gk.pack_int4(codes), scales, payload)
 
 
 def ring_sweep(dev, gen) -> dict:
-    """Rows 1 and 3 (the node-block ring) against their plain versions at
+    """Rows 1, 3 and 4 (the node-block ring) against their plain versions at
     every shape the wrapper takes: m0 16 to 128 (m0=128 at d=128 is cut into
-    two pieces of rows), d 96 and 128, E 1, 2 and 4, L2 and IP, chosen ids
-    out of range (NaN, -1), B*E far below the persistent grid (B=48) and far
-    above it (B=4096, E=4), a row as wide as the wrapper allows (d=12288,
-    one piece of 2 rows, a ring past 48 KB), and l2u8's scale-1 codes, whose
-    distances must equal the int64 ones. Ids exactly equal, distances within
-    rtol 1e-5, atol 1e-4. Returns the largest error per tier."""
+    two pieces of rows), d 96 and 128 (and for int4 d=104, whose 52-byte row
+    is no multiple of 8 bytes), E 1, 2 and 4, L2 and IP, chosen ids out of
+    range (NaN, -1), B*E far below the persistent grid (B=48) and far above
+    it (B=4096, E=4), a row as wide as the wrapper allows (d=12288, pieces
+    of 2 rows, a ring past 48 KB; for int4 also d=12280, a 6,140-byte row cut
+    into pieces of 4 rows), and l2u8's scale-1 codes, whose distances must
+    equal the int64 ones. Ids exactly equal, distances within rtol 1e-5,
+    atol 1e-4. Returns the largest error per tier."""
     import torch
 
     from hnsw_tpu_torch.ops import gather_kernels as gk
 
-    errs = {"bf16": 0.0, "int8": 0.0}
+    errs = {"bf16": 0.0, "int8": 0.0, "int4": 0.0}
     nan = float("nan")
 
     def check(tier, table, b, e, space, exact=False, d=None):
@@ -429,9 +437,9 @@ def ring_sweep(dev, gen) -> dict:
         return 1
 
     t0, n = time.time(), 0
-    for tier in ("bf16", "int8"):
+    for tier in ("bf16", "int8", "int4"):
         for m0 in (16, 32, 64, 128):
-            for d in (96, 128):
+            for d in (96, 104, 128) if tier == "int4" else (96, 128):
                 table = dev_table(dev, gen, tier, 2048, m0, d)
                 for e in (1, 2, 4):
                     n += check(tier, table, 48, e, "l2", d=d) + check(tier, table, 48, e, "ip", d=d)
@@ -441,10 +449,11 @@ def ring_sweep(dev, gen) -> dict:
                 table = dev_table(dev, gen, tier, 2048, m0, 128, exact=True)
                 n += check(tier, table, 48, 2, "l2", exact=True, d=128)
                 n += check(tier, table, 4096, 4, "l2", exact=True, d=128)
-        n += check(tier, dev_table(dev, gen, tier, 64, 16, 12288), 8, 2, "l2", d=12288)
-    log(f"[phase1] ring sweep: rows 1 and 3 agree with their plain versions in {n} cases "
-        f"({time.time() - t0:.1f}s); max_abs_err bf16 {errs['bf16']:.3e}, "
-        f"int8 {errs['int8']:.3e}")
+        for d in (12288, 12280) if tier == "int4" else (12288,):
+            n += check(tier, dev_table(dev, gen, tier, 64, 16, d), 8, 2, "l2", d=d)
+    log(f"[phase1] ring sweep: rows 1, 3 and 4 agree with their plain versions in {n} cases "
+        f"({time.time() - t0:.1f}s); max_abs_err "
+        + ", ".join(f"{t} {e:.3e}" for t, e in errs.items()))
     return errs
 
 
@@ -472,13 +481,13 @@ def profiled_ms(fn, kernel: str) -> float:
 
 
 def cold_cases(dev, gen) -> dict:
-    """Rows 1 and 3 timed cold on tables of 262,144 node blocks (bf16 2.2 GB,
-    int8 1.1 GB; m0=32, d=128, L2) at the main path's launches, with row 6
-    (the split hop) and row 1 in turns on the same tensors at a bulk-build
-    wave's launch, there and on a table of 1,048,576 blocks (8.6 GB, a 1M
-    build's split table), and int8 and bf16 in turns at the speed mode's
-    launch. Bound A: the blocks as read (every pair's block, its ids and
-    scales) at 3.35 TB/s."""
+    """Rows 1, 3 and 4 timed cold on tables of 262,144 node blocks (bf16 2.2
+    GB, int8 1.1 GB, int4 0.6 GB; m0=32, d=128, L2) at the main path's
+    launches, with row 6 (the split hop) and row 1 in turns on the same
+    tensors at a bulk-build wave's launch, there and on a table of 1,048,576
+    blocks (8.6 GB, a 1M build's split table), and int8 and bf16, int4 and
+    int8, in turns at the speed mode's launch. Bound A: the blocks as read
+    (every pair's block, its ids and scales) at 3.35 TB/s."""
     import torch
 
     from hnsw_tpu_torch.ops import gather_kernels as gk
@@ -492,8 +501,8 @@ def cold_cases(dev, gen) -> dict:
     def read_ms(tier, b, e):  # bound A
         return b * e * m0 * HOP_ROW_BYTES[tier](d) / PEAK_BYTES * 1e3
 
-    tables = {t: dev_table(dev, gen, t, rows, m0, d) for t in ("bf16", "int8")}
-    out = {"bf16": {}, "int8": {}}  # the kernels line's cold times
+    tables = {t: dev_table(dev, gen, t, rows, m0, d) for t in ("bf16", "int8", "int4")}
+    out = {t: {} for t in tables}  # the kernels line's cold times
     sets = {}
     for (b, e), key in (((1024, 1), "cold_ms"), ((1024, 2), None),
                         ((8192, 2), "cold_b8192_ms"), ((16384, 2), None)):
@@ -512,16 +521,18 @@ def cold_cases(dev, gen) -> dict:
                 f"{ms:.4f} ms, bound A {bound_a * 1e3:.1f} us ({bound_a / ms:.0%} of bound), "
                 f"{b * e * m0 * HOP_ROW_BYTES[tier](d) / ms / 1e6:.0f} GB/s of blocks read")
 
-    # int8 against bf16 at the speed mode's launch, in turns
+    # int8 against bf16 and int4 against int8 at the speed mode's launch, in
+    # turns
     q, ch = sets[8192, 2]
-    b16, i8 = tables["bf16"], tables["int8"]
-    t16_a, t8_a, t8_b, t16_b = (cold_ms(lambda c: gk.hop_dist_unified(q, t, c), ch)
-                                for t in (b16, i8, i8, b16))
-    ratio = (t8_a + t8_b) / (t16_a + t16_b)
-    log(f"[phase1] cold B=8192 E=2 in turns: int8 {(t8_a + t8_b) / 2:.4f} ms, bf16 "
-        f"{(t16_a + t16_b) / 2:.4f} ms: int8 takes {ratio:.2f} of bf16's time for "
-        f"{HOP_ROW_BYTES['int8'](d) / HOP_ROW_BYTES['bf16'](d):.2f} of its bytes")
-    del tables, i8
+    for lo, hi in (("int8", "bf16"), ("int4", "int8")):
+        th_a, tl_a, tl_b, th_b = (cold_ms(lambda c: gk.hop_dist_unified(q, tables[t], c), ch)
+                                  for t in (hi, lo, lo, hi))
+        ratio = (tl_a + tl_b) / (th_a + th_b)
+        log(f"[phase1] cold B=8192 E=2 in turns: {lo} {(tl_a + tl_b) / 2:.4f} ms, {hi} "
+            f"{(th_a + th_b) / 2:.4f} ms: {lo} takes {ratio:.2f} of {hi}'s time for "
+            f"{HOP_ROW_BYTES[lo](d) / HOP_ROW_BYTES[hi](d):.2f} of its bytes")
+    b16 = tables.pop("bf16")
+    del tables
     torch.cuda.empty_cache()
 
     # row 6 and row 1 in turns on the same tensors, cold, at a wave's launch
@@ -550,9 +561,87 @@ def cold_cases(dev, gen) -> dict:
     return out
 
 
-# ---------------------------------------------------------------------------
-# Phase 2: the main path.
-# ---------------------------------------------------------------------------
+def gather_bad(q, table, ids, dk, dp):
+    """Where a gather kernel's distances `dk` miss the plain version's `dp`:
+    the f32 table's norm-expansion form cancels, so its atol scales with
+    |q|^2 + |x|^2; the bf16 table's direct difference is held to rtol 1e-5,
+    atol 1e-4."""
+    import torch
+
+    if table.dtype == torch.float32:
+        scale = (q * q).sum(-1, keepdim=True) + (table * table).sum(-1)[ids.long()]
+        return (dk - dp).abs() > 1e-5 * dp.abs() + 1e-5 * scale
+    return ~torch.isclose(dk, dp, rtol=1e-5, atol=1e-4)
+
+
+def gather_sweep(dev, gen) -> dict:
+    """Rows 2 and 5 (the f32 and bf16 gathers) against their plain versions
+    at K 1, 40 and 160, d 30, 96, 128 and 768 (d=30: the bf16 table's rows
+    are 60 bytes, the second path of gather_dist_bf16.cu), L2 and IP, with
+    ids out of range (NaN). Returns the largest error per table type."""
+    import torch
+
+    from hnsw_tpu_torch.ops import gather_kernels as gk
+
+    errs, n, t0, rows, b = {}, 0, time.time(), 4096, 64
+    for name, dtype in (("gather_f32", torch.float32), ("gather_bf16", torch.bfloat16)):
+        errs[name] = 0.0
+        for d in (30, 96, 128, 768):
+            table = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+            for kk in (1, 40, 160):
+                for space in ("l2", "ip"):
+                    q = torch.randn((b, d), generator=gen, device=dev)
+                    ids = torch.randint(0, rows, (b, kk), generator=gen, device=dev,
+                                        dtype=torch.int32)
+                    ids[0, 0], ids[1, kk - 1], ids[2, 0] = -1, rows, rows - 1
+                    ok = (ids >= 0) & (ids < rows)
+                    dk = gk.gather_dist_rows(q, table, ids, space)
+                    safe = torch.where(ok, ids, 0)
+                    dp = gk.gather_dist_rows_plain(q, table, safe, space)
+                    torch.cuda.synchronize()
+                    tag = f"gather sweep {name[7:]} B={b} K={kk} d={d} {space}"
+                    if not torch.equal(torch.isnan(dk), ~ok):
+                        fail(f"{tag}: NaN where an id was in range, or none where it was not")
+                    if bool(gather_bad(q, table, safe, dk, dp)[ok].any()):
+                        fail(f"{tag}: dists differ")
+                    errs[name] = max(errs[name], float((dk - dp)[ok].abs().max()))
+                    n += 1
+    log(f"[phase1] gather sweep: rows 2 and 5 agree with their plain versions in {n} cases "
+        f"({time.time() - t0:.1f}s); max_abs_err "
+        + ", ".join(f"{t[7:]} {e:.3e}" for t, e in errs.items()))
+    return errs
+
+
+def gather_cold_cases(dev, gen) -> dict:
+    """Rows 2 and 5 timed cold: tables of 2,000,000 rows at d=128 (f32 1.02
+    GB, bf16 512 MB), a fresh `ids` for each launch at B=1024 K=40 (the
+    rescore of phase 2 (c) and of phase 3's auto rescore of 4*k). Bound A:
+    B*K*D*elem bytes at 3.35 TB/s."""
+    import torch
+
+    from hnsw_tpu_torch.ops import gather_kernels as gk
+
+    rows, b, kk, d = 2_000_000, 1024, 40, 128
+    q = torch.randn((b, d), generator=gen, device=dev)
+    sets = [torch.randint(0, rows, (b, kk), generator=gen, device=dev, dtype=torch.int32)
+            for _ in range(21)]
+    out = {}
+    for name, dtype in (("gather_f32", torch.float32), ("gather_bf16", torch.bfloat16)):
+        table = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        dk = gk.gather_dist_rows(q, table, sets[0])
+        dp = gk.gather_dist_rows_plain(q, table, sets[0])
+        if bool(gather_bad(q, table, sets[0], dk, dp).any()):
+            fail(f"cold {name} B={b} K={kk}: differs from its plain version")
+        ms = cold_ms(lambda i: gk.gather_dist_rows(q, table, i), sets)
+        nbytes = b * kk * d * table.element_size()
+        bound_a = nbytes / PEAK_BYTES * 1e3
+        out[name] = {"cold_ms": ms}
+        log(f"[phase1] cold {name[7:]} gather B={b} K={kk} d={d} l2, {rows} rows "
+            f"({table.nbytes / 1e9:.2f} GB): {ms:.4f} ms, bound A {bound_a * 1e3:.1f} us "
+            f"({bound_a / ms:.0%} of bound), {nbytes / ms / 1e6:.0f} GB/s of rows read")
+        del table
+    torch.cuda.empty_cache()
+    return out
 
 
 def recall(got: np.ndarray, gt: np.ndarray) -> float:
@@ -1094,7 +1183,7 @@ def main() -> int:
         ("hop_dist_unified", "hop_bf16", "hop_ring.cuh", "pallas_gather.py:795"),
         ("gather_dist_rows", "gather_f32", "gather_dist.cu", "pallas_gather.py:1051"),
         ("hop_dist_unified8", "hop_int8", "hop_ring.cuh", "pallas_gather.py:795"),
-        ("hop_dist_unified4", "hop_int4", "hop_dist_quant.cu", "pallas_gather.py:795"),
+        ("hop_dist_unified4", "hop_int4", "hop_ring.cuh", "pallas_gather.py:795"),
         ("gather_dist_bf16", "gather_bf16", "gather_dist_bf16.cu", "pallas_gather.py:1026"),
         ("hop_dist_inline", "hop_inline", "hop_dist_inline.cu", "pallas_gather.py:214"),
     ]
@@ -1107,7 +1196,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            # rows 1 and 3 timed cold (fresh blocks per launch): B=1024 E=1, B=8192 E=2
+            # timed cold (fresh blocks or rows per launch): rows 1, 3 and 4 at
+            # B=1024 E=1 and B=8192 E=2, rows 2 and 5 at B=1024 K=40
             **{k: r[k] for k in ("cold_ms", "cold_b8192_ms") if k in r},
         })
     log(json.dumps({"kernels": kernels}))

@@ -1,11 +1,12 @@
-// The node-block ring: the unified hop kernels of the bf16 and int8 tiers
-// (hop_dist_unified.cu, hop_dist_quant.cu) for sm_90a.
+// The node-block ring: the unified hop kernels of the bf16, int8 and int4
+// tiers (hop_dist_unified.cu, hop_dist_quant.cu) for sm_90a.
 //
 // Replaces: hnsw_tpu/ops/pallas_gather.py, hop_dist_unified /
-// _hop_dist_unified_kernel on bf16 rows and with int8=True. For each query b
-// and each of its E chosen nodes c = chosen[b, e] it reads the node's block of
-// m0 neighbor rows and their m0 payload ids (and, for int8, the m0 dequant
-// scales) and writes, with x_i the bf16 value widened to f32 or
+// _hop_dist_unified_kernel on bf16 rows, with int8=True and with int4=True
+// (the nibble unpack :717-723, the dequant :724-735). For each query b and
+// each of its E chosen nodes c = chosen[b, e] it reads the node's block of
+// m0 neighbor rows and their m0 payload ids (and, for int8 and int4, the m0
+// dequant scales) and writes, with x_i the bf16 value widened to f32 or
 // float(code_i) * scale in f32:
 //   L2: dists[b, e*m0 + j] = sum_i (x_i - q_i)^2
 //   IP: dists[b, e*m0 + j] = 1 - sum_i x_i * q_i
@@ -15,12 +16,12 @@
 //
 // What bounds it: bytes read from random places. One (query, chosen) pair
 // reads one contiguous block, m0*d_pad*2 bytes of bf16 (8,192 at m0=32,
-// d=128) or m0*d_pad bytes of int8, plus m0*4 bytes of ids (and m0*4 of
-// scales); the arithmetic, 3 to 4 flops per byte, is far below the compute
-// roof. By Little's law the H100's 3.35 TB/s at ~1-1.5 us of loaded latency
-// needs ~25-40 KB in flight on each of the 132 SMs; a warp per row with one
-// 8-byte load per lane (the first design of these kernels) keeps ~2 KB in
-// flight per block of threads.
+// d=128), m0*d_pad bytes of int8 or m0*d_pad/2 of int4, plus m0*4 bytes of
+// ids (and m0*4 of scales); the arithmetic, 3 to 10 operations per byte, is
+// below the compute roof. By Little's law the H100's 3.35 TB/s at ~1-1.5 us
+// of loaded latency needs ~25-40 KB in flight on each of the 132 SMs; a warp
+// per row with one 8-byte load per lane (the first design of these kernels)
+// keeps ~2 KB in flight per block of threads.
 //
 // Design: a persistent grid of blocks, each a shared-memory ring of S stages.
 // The unit of work is a piece: one (query, chosen) pair's block, or a run of
@@ -36,8 +37,9 @@
 // needed; a lone block is its own cluster. So S stages per block, several
 // blocks per SM, are in flight with no registers spent on them. The consumer
 // warps wait on "full", take two rows per half-warp at a time with one
-// 16-byte (bf16, 8 values) or 8-byte (int8, 8 codes) ld.shared per lane per
-// row and step, accumulate in f32, reduce with __shfl_xor_sync within the
+// 16-byte (bf16, 8 values), 8-byte (int8, 8 codes) or 4-byte (int4, 8
+// codes) ld.shared per lane per row and step, accumulate in f32, reduce
+// with __shfl_xor_sync within the
 // half, and the half's first lane writes the distances and copies the ids.
 // Every consumer warp then arrives on "empty", a warp with no row in the
 // piece too. A chosen id outside [0, R) issues no copy (a plain arrive on
@@ -45,8 +47,12 @@
 // on the card), with all of the unified L1 that shared memory may take, so
 // at a small launch (B=1024, E=1) every piece's copy is in flight in the
 // first round. Copies need 16-byte sizes and addresses, so m0 % 4 == 0 (the
-// port's tables pad m0 to a multiple of 16) and a piece is an even number of
-// rows.
+// port's tables pad m0 to a multiple of 16) and a piece is a number of rows
+// whose bytes are a multiple of 16: even, or a multiple of 4 where an int4
+// row is 4 or 12 bytes past a multiple of 16 (d_pad % 16 == 8, as d=104).
+// An int4 stage is small (2,816 bytes at m0=32, d=128) and its ring holds 8
+// of them: a ring of 16 took the same time, so the count of pieces in
+// flight is not what holds int4 at int8's time.
 
 #pragma once
 
@@ -59,19 +65,19 @@ constexpr int kConsumerWarps = 8;
 constexpr int kThreads = (kConsumerWarps + 1) * 32;  // + the producer warp
 constexpr int kMinBlocks = 4;                        // per SM: <= 56 registers a thread
 constexpr int kMaxStages = 8;
-constexpr int kStageTarget = 32 * 1024;  // bytes of one stage, at most (but one row pair)
+constexpr int kStageTarget = 32 * 1024;  // bytes of one stage, at most (but one piece)
 constexpr int kRingTarget = 40 * 1024;   // bytes of one block's ring, about
 constexpr int kHeaderBytes = 256;        // 2 * kMaxStages mbarriers + kMaxStages flags
 
-enum Kind { kBf16 = 0, kInt8 = 1 };
+enum Kind { kBf16 = 0, kInt8 = 1, kInt4 = 2 };
 
 // The layout of one launch: a piece is `rps` rows (the last piece of a block
 // may be shorter); a stage holds [q | ids | scales | rows], each region a
 // multiple of 16 bytes.
 struct Shape {
   int B, E, m0, d_pad;
-  int row_bytes;  // bytes of one neighbor row: 2*d_pad (bf16) or d_pad (int8)
-  int rps;        // rows per piece (even)
+  int row_bytes;  // bytes of one neighbor row: 2*d_pad (bf16), d_pad (int8), d_pad/2 (int4)
+  int rps;        // rows per piece: rps * row_bytes % 16 == 0
   int pieces;     // pieces per (query, chosen) pair
   int ids_off, sc_off, rows_off, stage_bytes, stages;
 };
@@ -84,19 +90,20 @@ inline Shape make_shape(int B, int E, int m0, int d_pad, Kind kind) {
   s.E = E;
   s.m0 = m0;
   s.d_pad = d_pad;
-  s.row_bytes = kind == kBf16 ? 2 * d_pad : d_pad;
+  s.row_bytes = kind == kBf16 ? 2 * d_pad : (kind == kInt8 ? d_pad : d_pad / 2);
+  const int unit = s.row_bytes % 8 ? 4 : 2;  // rows whose bytes are a multiple of 16
   const int ids = round16(m0 * 4);
-  const int fixed = d_pad * 4 + ids * (kind == kInt8 ? 2 : 1);
+  const int fixed = d_pad * 4 + ids * (kind == kBf16 ? 1 : 2);
   int fit = (kStageTarget - fixed) / s.row_bytes;
-  if (fit < 2) fit = 2;
+  if (fit < unit) fit = unit;
   const int pieces = (m0 + fit - 1) / fit;
   int rps = (m0 + pieces - 1) / pieces;
-  rps += rps & 1;
+  rps = (rps + unit - 1) / unit * unit;
   s.rps = rps < m0 ? rps : m0;
   s.pieces = (m0 + s.rps - 1) / s.rps;
   s.ids_off = d_pad * 4;
   s.sc_off = s.ids_off + ids;
-  s.rows_off = s.sc_off + (kind == kInt8 ? ids : 0);
+  s.rows_off = s.sc_off + (kind == kBf16 ? 0 : ids);
   s.stage_bytes = round16(s.rows_off + s.rps * s.row_bytes);
   int st = kRingTarget / s.stage_bytes;
   s.stages = st < 2 ? 2 : (st > kMaxStages ? kMaxStages : st);
@@ -166,8 +173,12 @@ __device__ __forceinline__ float accum(float acc, float x, float q) {
 // 8-byte load of 8 codes; float(code) is taken without a conversion
 // instruction (a quarter-rate one on this card): the code, biased by 128,
 // goes into the low mantissa byte of 2^23 with one byte permute, and one
-// exact subtraction of 2^23 + 128 leaves the integer. Then x = float(code) *
-// scale, as the TPU kernel dequantizes.
+// exact subtraction of 2^23 + 128 leaves the integer. int4: one 4-byte load
+// of 8 codes, code 8c+k in nibble k (pack_int4's order, two's complement);
+// XOR with 0x88888888 biases every nibble by 8, two masks spread the even
+// and the odd nibbles over the bytes of two words, and from there each code
+// takes the int8 path's byte permute and one exact subtraction of 2^23 + 8.
+// Then x = float(code) * scale, as the TPU kernel dequantizes.
 template <Kind kKind, bool kIP>
 __device__ __forceinline__ float accumulate8(const unsigned char* row, const float* q_s, int c,
                                              float scale, float acc) {
@@ -182,6 +193,15 @@ __device__ __forceinline__ float accumulate8(const unsigned char* row, const flo
     for (int t = 0; t < 4; ++t) {
       x[2 * t] = __uint_as_float(w[t] << 16);
       x[2 * t + 1] = __uint_as_float(w[t] & 0xffff0000u);
+    }
+  } else if (kKind == kInt4) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(row)[c] ^ 0x88888888u;  // code + 8
+    const uint32_t nib[2] = {w & 0x0f0f0f0fu, (w >> 4) & 0x0f0f0f0fu};  // codes 8c+2j, 8c+2j+1
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      // bytes of the result: (code + 8), 0, 0, 0x4B: the f32 2^23 + code + 8
+      const uint32_t bits = __byte_perm(nib[k & 1], 0x4B000000u, 0x7540u | (k >> 1));
+      x[k] = (__uint_as_float(bits) - 8388616.f) * scale;
     }
   } else {
     const uint2 raw = reinterpret_cast<const uint2*>(row)[c];
@@ -204,7 +224,7 @@ template <Kind kKind, bool kIP>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
                      const unsigned char* __restrict__ rows,  // [R, m0, row_bytes]
-                     const float* __restrict__ scales,        // [R, m0] (int8) or null
+                     const float* __restrict__ scales,        // [R, m0] (int8, int4) or null
                      const int32_t* __restrict__ payload,     // [R, m0]
                      const int32_t* __restrict__ chosen,      // [B, E]
                      float* __restrict__ out_d,               // [B, E*m0]
@@ -259,10 +279,10 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
         const uint32_t ids = sh.m0 * 4;
         const uint32_t q_bytes = sh.d_pad * 4;
         const uint32_t row_bytes = (uint32_t)nrows * sh.row_bytes;
-        mbar_arrive_expect_tx(full_l, q_bytes + ids * (kKind == kInt8 ? 2 : 1) + row_bytes);
+        mbar_arrive_expect_tx(full_l, q_bytes + ids * (kKind == kBf16 ? 1 : 2) + row_bytes);
         bulk_g2s(st, q + (size_t)b * sh.d_pad, q_bytes, full_l);
         bulk_g2s(st + sh.ids_off, payload + blk, ids, full_l);
-        if (kKind == kInt8) bulk_g2s(st + sh.sc_off, scales + blk, ids, full_l);
+        if (kKind != kBf16) bulk_g2s(st + sh.sc_off, scales + blk, ids, full_l);
         bulk_g2s(st + sh.rows_off, rows + (size_t)(blk + row0) * sh.row_bytes, row_bytes,
                  full_l);
       } else {
@@ -301,8 +321,8 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
       const bool live_a = ra < nrows, live_b = rb < nrows;
       float acc_a = 0.f, acc_b = 0.f;
       if (ok) {
-        const float sc_a = kKind == kInt8 && live_a ? sc_s[ra] : 1.f;
-        const float sc_b = kKind == kInt8 && live_b ? sc_s[rb] : 1.f;
+        const float sc_a = kKind != kBf16 && live_a ? sc_s[ra] : 1.f;
+        const float sc_b = kKind != kBf16 && live_b ? sc_s[rb] : 1.f;
         for (int c = hl; c < chunks; c += 16) {
           if (live_a)
             acc_a = accumulate8<kKind, kIP>(rows_s + (size_t)ra * sh.row_bytes, q_s, c, sc_a,

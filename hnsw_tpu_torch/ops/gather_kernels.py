@@ -18,12 +18,13 @@
   else split).
 - ``hop_dist_unified``: distances from each query to the neighbors of its
   chosen nodes, read from a unified table of any tier
-  (csrc/hop_dist_unified.cu, csrc/hop_dist_quant.cu; the bf16 and int8
-  tiers share the node-block ring of csrc/hop_ring.cuh).
+  (csrc/hop_dist_unified.cu, csrc/hop_dist_quant.cu; the three tiers share
+  the node-block ring of csrc/hop_ring.cuh).
 - ``hop_dist_inline``: the same on the split tier (csrc/hop_dist_inline.cu).
 - ``gather_dist_rows``: distances from each query to K rows of the f32 or
   bf16 vector table, the exact rescore (csrc/gather_dist.cu,
-  csrc/gather_dist_bf16.cu).
+  csrc/gather_dist_bf16.cu: every row of a query in flight at once where
+  d % 8 == 0, a warp per row at other widths).
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises. ``COUNTS`` records every
@@ -556,8 +557,8 @@ def hop_dist_unified(
         raise ValueError(f"hop_dist_unified: unsupported d_pad {table.d_pad}")
     b, e = chosen.shape
     m0 = table.m0
-    if kind != "int4" and m0 % 4:
-        # the bf16 and int8 kernels copy ids and rows in 16-byte multiples
+    if m0 % 4:
+        # the ring copies ids, scales and rows in 16-byte multiples
         raise ValueError(f"hop_dist_unified: {kind} table m0 {m0} is not a multiple of 4")
     # padded only when narrower than the table: a pad is a copy kernel per call
     qp = q if q.shape[1] == table.d_pad else F.pad(q, (0, table.d_pad - q.shape[1]))
@@ -732,6 +733,8 @@ def gather_dist_rows(
     entry = "gather_dist_bf16" if bf16 else "gather_dist_f32"
     b, k = ids.shape
     qc = q.contiguous()
+    if qc.data_ptr() % 16:  # the bf16 kernel copies query rows in 16-byte chunks
+        qc = qc.clone()
     idc = ids.contiguous()
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     lib = load_kernels()

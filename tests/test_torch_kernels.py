@@ -237,32 +237,36 @@ def test_gather_kernel_matches_plain_on_cuda(cuda_device, space):
 
 
 def _ring_table(rng, tier, rows, m0, d, dev):
-    """A random unified table: bf16 vectors, int8 codes with scales, or l2u8's
-    lossless scale-1 codes ("u8")."""
+    """A random unified table: bf16 vectors, int8 or int4 codes with scales,
+    or l2u8's lossless scale-1 codes ("u8")."""
     d_pad = -(-d // 8) * 8
     payload = torch.from_numpy(rng.integers(0, 1 << 30, (rows, m0)).astype(np.int32))
     if tier == "bf16":
         vecs = torch.from_numpy(rng.normal(size=(rows, m0, d_pad)).astype(np.float32))
         vecs[:, :, d:] = 0
         return gk.UnifiedTable(vecs.to(torch.bfloat16).to(dev), payload.to(dev))
-    codes = rng.integers(-128 if tier == "u8" else -127, 128, (rows, m0, d_pad)).astype(np.int8)
+    lo, hi = {"u8": (-128, 127), "int8": (-127, 127), "int4": (-7, 7)}[tier]
+    codes = rng.integers(lo, hi + 1, (rows, m0, d_pad)).astype(np.int8)
     codes[:, :, d:] = 0
     scales = np.ones((rows, m0), np.float32) if tier == "u8" else rng.uniform(
         0.01, 0.1, (rows, m0)).astype(np.float32)
-    return gk.Unified8Table(torch.from_numpy(codes).to(dev), torch.from_numpy(scales).to(dev),
-                            payload.to(dev))
+    codes, scales = torch.from_numpy(codes), torch.from_numpy(scales).to(dev)
+    if tier == "int4":
+        return gk.Unified4Table(gk.pack_int4(codes).to(dev), scales, payload.to(dev))
+    return gk.Unified8Table(codes.to(dev), scales, payload.to(dev))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["bf16", "int8", "u8"])
+@pytest.mark.parametrize("tier", ["bf16", "int8", "u8", "int4"])
 @pytest.mark.parametrize("m0", [16, 32, 64, 128])
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 104])
 @pytest.mark.parametrize("e,b", [(1, 48), (2, 48), (4, 48), (4, 4096)])
 def test_hop_ring_shapes_on_cuda(cuda_device, tier, m0, d, e, b):
-    """The bf16 and int8 hop kernels (the node-block ring) at every shape
-    the wrapper takes, B*E far below (B=48) and far above (B=4096, E=4) the
-    persistent grid, with chosen ids out of range (NaN, id -1). l2u8's
-    scale-1 codes against integer queries give the int64 distances."""
+    """The bf16, int8 and int4 hop kernels (the node-block ring) at every
+    shape the wrapper takes (d=104: a 52-byte int4 row), B*E far below
+    (B=48) and far above (B=4096, E=4) the persistent grid, with chosen ids
+    out of range (NaN, id -1). l2u8's scale-1 codes against integer queries
+    give the int64 distances."""
     rng = np.random.default_rng(m0 + d + e)
     rows = 2048
     table = _ring_table(rng, tier, rows, m0, d, cuda_device)
@@ -290,7 +294,7 @@ def test_hop_ring_shapes_on_cuda(cuda_device, tier, m0, d, e, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("tier", ["bf16", "int8", "int4"])
 def test_hop_ring_widest_row_on_cuda(cuda_device, tier):
     """d_pad = 12288, the widest row the wrapper takes: a piece of 2 rows and
     a ring past 48 KB of shared memory."""
@@ -303,3 +307,32 @@ def test_hop_ring_widest_row_on_cuda(cuda_device, tier):
     torch.cuda.synchronize()
     assert torch.equal(ik, ip_)
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hop_ring_int4_four_row_pieces_on_cuda(cuda_device):
+    """d_pad = 12280: an int4 row of 6,140 bytes (4 past a multiple of 16),
+    so the ring cuts a block into pieces of 4 rows for 16-byte copies."""
+    rng = np.random.default_rng(4)
+    table = _ring_table(rng, "int4", 64, 16, 12280, cuda_device)
+    q = torch.from_numpy(rng.normal(size=(8, 12280)).astype(np.float32)).to(cuda_device)
+    chosen = torch.from_numpy(rng.integers(0, 64, (8, 2)).astype(np.int32)).to(cuda_device)
+    for space in ("l2", "ip"):
+        dk, ik = gk.hop_dist_unified(q, table, chosen, space)
+        dp, ip_ = gk.hop_dist_unified_plain(q, table, chosen, space)
+        torch.cuda.synchronize()
+        assert torch.equal(ik, ip_)
+        torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "int8", "int4"])
+def test_hop_wrapper_rejects_m0_not_multiple_of_4_on_cuda(cuda_device, tier):
+    """The ring copies ids, scales and rows in 16-byte multiples: on a CUDA
+    tensor the wrapper raises for m0 % 4 (the CPU's plain version takes
+    it)."""
+    table = _ring_table(np.random.default_rng(5), tier, 8, 6, 16, cuda_device)
+    q = torch.zeros((2, 16), device=cuda_device)
+    chosen = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="m0 6 is not a multiple of 4"):
+        gk.hop_dist_unified(q, table, chosen)

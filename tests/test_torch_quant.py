@@ -72,7 +72,9 @@ def test_quant_tables_equal_jax_rows(tier, d, m0):
 
 
 @pytest.mark.parametrize("tier", ["int8", "int4"])
-@pytest.mark.parametrize("space,e,m0,d", [("l2", 2, 16, 40), ("ip", 2, 16, 40), ("l2", 1, 32, 128)])
+@pytest.mark.parametrize("space,e,m0,d", [("l2", 2, 16, 40), ("ip", 2, 16, 40), ("l2", 1, 32, 128),
+                                          # d=104: an int4 row of 52 bytes; m0=64: M=32
+                                          ("l2", 1, 16, 104), ("ip", 2, 64, 128)])
 def test_quant_hop_plain_matches_jax_interpret(tier, space, e, m0, d):
     x, table, (jtab, _, _) = _tables(tier, d, m0, seed=m0 + d)
     rng = np.random.default_rng(d)
@@ -99,6 +101,25 @@ def test_bf16_gather_plain_matches_jax_interpret(space):
     want = np.asarray(jpg.gather_dist_pallas(
         jnp.asarray(q), jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(ids), space=space,
         interpret=True,
+    ))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,k,d,space", [(1, 160, 104, "l2"), (8, 12, 104, "ip")])
+def test_bf16_gather_plain_matches_jax_interpret_shapes(b, k, d, space):
+    """K=160 (four of the CUDA kernel's 40-row batches) and d=104 (rows of
+    208 bytes) against JAX; one query at K=160, as interpret mode takes
+    ~0.07 s a row."""
+    rng = np.random.default_rng(k + d)
+    n = 401
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    ids = rng.integers(0, n, size=(b, k)).astype(np.int32)
+    got = gk.gather_dist_rows(torch.from_numpy(q), torch.from_numpy(x).to(torch.bfloat16),
+                              torch.from_numpy(ids), space).numpy()
+    want = np.asarray(jpg.gather_dist_pallas(
+        jnp.asarray(q), jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(ids), space=space,
+        tb=min(b, 8), interpret=True,
     ))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
@@ -187,7 +208,8 @@ def test_quant_hop_kernel_matches_plain_on_cuda(cuda_device, tier, space, e, m0,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("space,d", [("l2", 128), ("ip", 128), ("l2", 30)])
+@pytest.mark.parametrize("space,d", [("l2", 128), ("ip", 128), ("l2", 30), ("l2", 96),
+                                     ("ip", 768)])
 def test_bf16_gather_kernel_matches_plain_on_cuda(cuda_device, space, d):
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(500, d)).astype(np.float32)).to(cuda_device)
@@ -198,3 +220,26 @@ def test_bf16_gather_kernel_matches_plain_on_cuda(cuda_device, space, d):
     dp = gk.gather_dist_rows_plain(q, xb, ids, space)
     torch.cuda.synchronize()
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 160])
+@pytest.mark.parametrize("d", [30, 96, 128, 768])
+@pytest.mark.parametrize("space", ["l2", "ip"])
+def test_bf16_gather_kernel_k_and_ids_on_cuda(cuda_device, k, d, space):
+    """Both CUDA paths of the bf16 gather (40 rows of a query in flight
+    where d % 8 == 0, a warp per row at d=30) at K=1 and K=160 (four
+    batches of 40 rows), with ids out of range (NaN)."""
+    rng = np.random.default_rng(k + d)
+    rows = 500
+    xb = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(torch.bfloat16)
+    q = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32))
+    ids = rng.integers(0, rows, (64, k)).astype(np.int32)
+    ids[0, 0], ids[1, k - 1] = -1, rows
+    xb, q, ids = xb.to(cuda_device), q.to(cuda_device), torch.from_numpy(ids).to(cuda_device)
+    ok = (ids >= 0) & (ids < rows)
+    dk = gk.gather_dist_rows(q, xb, ids, space)
+    dp = gk.gather_dist_rows_plain(q, xb, torch.where(ok, ids, 0), space)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(dk), ~ok)
+    torch.testing.assert_close(dk[ok], dp[ok], rtol=1e-5, atol=1e-4)
