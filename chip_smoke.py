@@ -32,6 +32,18 @@ Phase 4  the device-wave bulk build (bulk_build, d=128, M=16, efC=200,
          same data; (h) N=1M of the reference's 1M sweep data, then served
          after rebuild_device_tables(), then 1000 inserts that must sync as a
          delta.
+Phase 5  the deployment path as users run it, at the reference builder's
+         default deployment (N=100k gaussian vectors, d=128, M=16, efC=200,
+         k=10, ef=200): hnsw_tpu_torch.service.builder_cli writes the vector
+         store, the .npz index and its .adj; the storage service runs as its
+         own process; (a) the normal-mode query service (a thread of this
+         process, so the launch counters can be read) answers /search_batch
+         in four modes and 256 single /search requests from 16 clients;
+         (b) the optimized mode (.adj + one bulk fetch) runs as its own
+         process; (c) the engine's int8 rung with --hbm_trim, in process.
+         Gates: recall against the CPU engine, single answers against the
+         batch at their bucket, (b)'s ids against (a)'s, (c)'s recall and
+         tier, and the launches of rows 1, 2, 3 and 5.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -1153,6 +1165,275 @@ def phase4(dev, launches, p2) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the deployment path (builder CLI, storage service, query service).
+# ---------------------------------------------------------------------------
+
+NQ_SERVE, N_SINGLE, N_CLIENTS = 1024, 256, 16
+SERVE_MODES = {
+    "speed": {"stop_frontier": 1.15, "max_iters": 14, "entry_seeds": 4, "ef": 160},
+    "high_recall": {"rescore": 40, "entry_seeds": 4},
+    "rank_only": {"frontier_rank": 200},
+}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url: str, body: bytes | None = None, timeout: float = 600):
+    """GET (no body) or POST a JSON body → the decoded JSON reply."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body else "GET")
+    req.add_header("Content-Type", "application/json")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def wait_ready(url: str, proc, log_path: str, timeout: float = 600):
+    """Poll `url` until it answers; fail if the process `proc` (or None: a
+    thread of this one) exits first or the time runs out."""
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        if proc is not None and proc.poll() is not None:
+            with open(log_path) as fh:
+                fail(f"{url}: the service exited with {proc.returncode}:\n{fh.read()[-4000:]}")
+        try:
+            return http(url, timeout=10)
+        except OSError:
+            time.sleep(0.2)
+    fail(f"{url}: no answer within {timeout} s")
+
+
+def result_ids(results, k=K) -> np.ndarray:
+    """The ids of /search_batch's per-query result lists, -1 where a list is
+    short."""
+    out = np.full((len(results), k), -1, dtype=np.int64)
+    for i, row in enumerate(results):
+        ids = [r["id"] for r in row][:k]
+        out[i, : len(ids)] = ids
+    return out
+
+
+def phase5(dev, launches) -> dict:
+    """The deployment path as a user runs it, at the reference builder's
+    default deployment (N=100k gaussian vectors, d=128, M=16, efC=200, k=10,
+    ef=200): builder_cli writes the store and the index; the storage
+    service runs as its own process; (a) the normal-mode query service in
+    this process (so the launch counters can be read) over HTTP; (b) the
+    optimized mode started as users start it; (c) the engine's int8 rung
+    with --hbm_trim, in process."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from hnsw_tpu_torch import BruteforceIndex, HNSWIndex, L2Space
+    from hnsw_tpu_torch.core.graph import round_up
+    from hnsw_tpu_torch.models import hnsw as thnsw
+    from hnsw_tpu_torch.ops.gather_kernels import COUNTS, tier_bytes
+    from hnsw_tpu_torch.service import builder_cli
+    from hnsw_tpu_torch.service import query_service as qs
+
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="hnsw_phase5_")
+    db, ckpt = os.path.join(tmp, "vec_store.log"), os.path.join(tmp, "hnsw_index.npz")
+    procs: list = []
+    repo = os.path.dirname(os.path.abspath(__file__))
+    unified_max = thnsw.UNIFIED_MAX_BYTES
+
+    def start(name, args):
+        path = os.path.join(tmp, f"{name}.log")
+        fh = open(path, "w")
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=repo, stdout=fh,
+                                stderr=subprocess.STDOUT)
+        procs.append(proc)
+        return proc, path
+
+    try:
+        t0 = time.time()
+        builder_cli.main([str(N), str(DIM), db, ckpt, str(M), str(EF_C)])
+        out["build_s"] = time.time() - t0
+        log(f"[phase5] builder_cli N={N} d={DIM} M={M} efC={EF_C}: {out['build_s']:.1f}s "
+            f"(store {os.path.getsize(db) / 1e6:.1f} MB, index "
+            f"{os.path.getsize(ckpt) / 1e6:.1f} MB, adj {os.path.getsize(ckpt + '.adj') / 1e6:.1f} MB)")
+        s_port = free_port()
+        storage = f"http://127.0.0.1:{s_port}"
+        s_proc, s_log = start("storage", ["hnsw_tpu_torch.service.storage_service", db,
+                                          str(s_port)])
+        if wait_ready(f"{storage}/info", s_proc, s_log)["count"] != N:
+            fail("the storage service does not hold N vectors")
+
+        x = np.random.default_rng(123).normal(size=(N, DIM)).astype(np.float32)  # the builder's
+        q = np.random.default_rng(SEED + 5).normal(size=(NQ_SERVE, DIM)).astype(np.float32)
+        oracle = BruteforceIndex(L2Space(DIM), device=dev)
+        oracle.add_items(x, np.arange(N))
+        _, gt = oracle.search_knn(q, K)
+        del oracle
+        cpu = HNSWIndex.load(ckpt, device=dev)
+        _, lab_cpu, _ = cpu.search_cpu(q, k=K, ef=200)
+        rec_cpu = recall(lab_cpu, gt)
+        del cpu
+
+        # (a) normal mode, served from a thread of this process
+        t0 = time.time()
+        eng = qs.build_engine(ckpt, False, storage, DIM, 200, K, modes=SERVE_MODES, device=dev)
+        eng.warm_modes()
+        start_a = time.time() - t0
+        if eng.tier != "unified":
+            fail(f"(a) the normal engine serves tier {eng.tier}, expected unified")
+        a_port = free_port()
+        url_a = f"http://127.0.0.1:{a_port}"
+        threading.Thread(target=qs.serve, args=(eng, a_port), daemon=True).start()
+        wait_ready(f"{url_a}/info", None, "")
+        torch.cuda.synchronize()
+        COUNTS.reset()
+        labs, qps = {}, {}
+        for mode in ("default", *SERVE_MODES):
+            req = {"queries": q.tolist()}
+            if mode != "default":
+                req["mode"] = mode
+            body = json.dumps(req).encode()
+            times = []
+            for _ in range(3):
+                t = time.time()
+                res = http(f"{url_a}/search_batch", body)
+                times.append(time.time() - t)
+            labs[mode] = result_ids(res["results"])
+            qps[mode] = NQ_SERVE / float(np.median(times))
+        # single queries from 16 clients at once, coalesced by the
+        # micro-batcher at the bucket of (k=10, ef=200)
+        lat = []
+        singles = [None] * N_SINGLE
+
+        def client(rows):
+            for i in rows:
+                body = json.dumps({"query": q[i].tolist(), "k": K, "ef": 200}).encode()
+                t = time.time()
+                singles[i] = http(f"{url_a}/search", body)["results"]
+                lat.append(time.time() - t)
+
+        threads = [threading.Thread(target=client, args=(range(c, N_SINGLE, N_CLIENTS),))
+                   for c in range(N_CLIENTS)]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        single_s = time.time() - t0
+        kb, efb = qs._MicroBatcher._bucket(K, 200)
+        at_bucket = http(f"{url_a}/search_batch", json.dumps(
+            {"queries": q[:N_SINGLE].tolist(), "k": kb, "ef": efb}).encode())["results"]
+        counts = {f: getattr(COUNTS, f) for f in launches}
+        if COUNTS.plain_on_cuda:
+            fail(f"(a) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
+        for f, c in counts.items():
+            launches[f] += c
+        need_launch("phase 5 (a)", counts, "hop_dist_unified", "gather_dist_rows")
+        rec = {mode: recall(lab, gt) for mode, lab in labs.items()}
+        bad = [i for i in range(N_SINGLE) if singles[i] is None or [
+            (r["id"], r["distance"]) for r in singles[i]] != [
+            (r["id"], r["distance"]) for r in at_bucket[i][:K]]]
+        p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
+        mem_a = http(f"{url_a}/mem")["rss_kb"]
+        log(f"[phase5] (a) normal mode: start-up {start_a:.1f}s (load + tables + warm), "
+            f"tier {eng.tier}; /search_batch of {NQ_SERVE}: " + ", ".join(
+                f"{m} recall@10 {rec[m]:.4f} at {qps[m]:.0f} qps" for m in rec)
+            + f"; native CPU engine (search_cpu, ef=200) {rec_cpu:.4f}")
+        log(f"[phase5] (a) {N_SINGLE} single /search from {N_CLIENTS} clients: "
+            f"{N_SINGLE / single_s:.0f} qps, latency p50 {p50:.2f} ms p99 {p99:.2f} ms; "
+            f"{len(bad)} differ from /search_batch at the bucket (k={kb}, ef={efb}); "
+            f"launches {counts}; /mem {mem_a} kB (this script's process)")
+        if abs(rec["default"] - rec_cpu) > 0.01:
+            fail(f"(a) default recall {rec['default']} not within 0.01 of the CPU engine's {rec_cpu}")
+        if bad:
+            fail(f"(a) {len(bad)} single answers differ from the batch answer at their bucket")
+        if rec["high_recall"] < rec["default"]:
+            fail(f"(a) high_recall {rec['high_recall']} below the default {rec['default']}")
+        if not np.array_equal(labs["rank_only"], labs["default"]):
+            fail("(a) rank_only does not serve the default mode's answers")
+
+        # (b) the optimized mode, started as users start it
+        b_port = free_port()
+        url_b = f"http://127.0.0.1:{b_port}"
+        t0 = time.time()
+        b_proc, b_log = start("query_optimized", [
+            "hnsw_tpu_torch.service.query_service", "--graph", ckpt, "--optimized", "1",
+            "--storage", storage, "--port", str(b_port), "--dim", str(DIM)])
+        info = wait_ready(f"{url_b}/info", b_proc, b_log)
+        start_b = time.time() - t0
+        if info["nodes"] != N or info["mode"] != "optimized":
+            fail(f"(b) /info {info}")
+        body = json.dumps({"queries": q.tolist()}).encode()
+        times = []
+        for _ in range(3):
+            t = time.time()
+            res = http(f"{url_b}/search_batch", body)
+            times.append(time.time() - t)
+        lab_b = result_ids(res["results"])
+        same = float(np.mean((lab_b == labs["default"]).all(1)))
+        mem_b = http(f"{url_b}/mem")["rss_kb"]
+        qps["optimized"] = NQ_SERVE / float(np.median(times))
+        log(f"[phase5] (b) optimized mode (own process, .adj + one bulk fetch): start-up "
+            f"{start_b:.1f}s to /info; {qps['optimized']:.0f} qps; {same:.4f} of the queries "
+            f"return (a)'s ids; /mem {mem_b} kB against (a)'s {mem_a} kB")
+        if same < 0.999:
+            fail(f"(b) only {same} of the queries return the normal mode's ids")
+
+        # (c) the int8 rung with --hbm_trim, in process
+        n_pad = round_up(N + 1, 128)
+        thnsw.UNIFIED_MAX_BYTES = tier_bytes(n_pad, 2 * M, DIM)["unified8"]
+        t0 = time.time()
+        eng_c = qs.build_engine(ckpt, True, storage, DIM, 200, K, hbm_trim=True,
+                                modes={"rescore40": {"rescore": 40}}, device=dev)
+        eng_c.warm_modes()
+        start_c = time.time() - t0
+        if eng_c.tier != "unified8" or eng_c.x.dtype != torch.bfloat16:
+            fail(f"(c) tier {eng_c.tier}, vectors {eng_c.x.dtype}: expected unified8 over bf16")
+        torch.cuda.synchronize()
+        COUNTS.reset()
+        _, lab_c = eng_c.search(q, K, 200)
+        _, lab_c40 = eng_c.search(q, K, 200, mode="rescore40")
+        counts_c = {f: getattr(COUNTS, f) for f in launches}
+        if COUNTS.plain_on_cuda:
+            fail(f"(c) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
+        for f, c in counts_c.items():
+            launches[f] += c
+        need_launch("phase 5 (c)", counts_c, "hop_dist_unified8", "gather_dist_bf16")
+        rec_c, rec_c40 = recall(lab_c, gt), recall(lab_c40, gt)
+        log(f"[phase5] (c) optimized + hbm_trim on {eng_c.tier} (budget "
+            f"{thnsw.UNIFIED_MAX_BYTES / 1e9:.3f} GB): start-up {start_c:.1f}s; recall@10 "
+            f"auto rescore {rec_c:.4f}, rescore40 mode {rec_c40:.4f} ((a) {rec['default']:.4f}); "
+            f"launches {counts_c}")
+        if abs(rec_c - rec["default"]) > 0.02:
+            fail(f"(c) recall {rec_c} not within 0.02 of (a)'s {rec['default']}")
+        out.update(recall={**rec, "cpu_engine": rec_cpu, "c": rec_c, "c_rescore40": rec_c40},
+                   qps=qps, single={"qps": N_SINGLE / single_s, "p50_ms": p50, "p99_ms": p99},
+                   startup_s={"a": start_a, "b": start_b, "c": start_c},
+                   rss_kb={"a": mem_a, "b": mem_b}, optimized_same=same,
+                   launches={"a": counts, "c": counts_c})
+        del eng_c
+        return out
+    finally:
+        thnsw.UNIFIED_MAX_BYTES = unified_max
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1176,9 +1457,11 @@ def main() -> int:
     p3 = phase3(dev, launches)
     torch.cuda.empty_cache()  # phase 3's index is gone: phase 4 gets the card
     p4 = phase4(dev, launches, p2)
+    torch.cuda.empty_cache()
+    p5 = phase5(dev, launches)
     log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"], "tiers": p3,
-                                "bulk_build": p4, "seconds": time.time() - t_start,
-                                "device": smi}}))
+                                "bulk_build": p4, "deployment": p5,
+                                "seconds": time.time() - t_start, "device": smi}}))
     rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
         ("hop_dist_unified", "hop_bf16", "hop_ring.cuh", "pallas_gather.py:795"),
         ("gather_dist_rows", "gather_f32", "gather_dist.cu", "pallas_gather.py:1051"),

@@ -62,6 +62,15 @@ UNIFIED_WAVE_MAX_BYTES = 0
 DELTA_CHUNK = 1 << 15
 
 
+def free_share(device: torch.device) -> int | None:
+    """UNIFIED_FREE_SHARE of the card's free memory in bytes; None (no
+    limit) on the CPU."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return int(free * UNIFIED_FREE_SHARE)
+    return None
+
+
 def _apply_row_deltas(
     st: "_DeviceState",
     new_vecs: torch.Tensor,  # [Nb, D] f32 appended or updated vectors
@@ -380,10 +389,7 @@ class HNSWIndex:
         return self._device
 
     def _free_share(self) -> int | None:
-        if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            return int(free * UNIFIED_FREE_SHARE)
-        return None
+        return free_share(self.device)
 
     def _unified_budget(self) -> int | None:
         for cap in (self.unified_max_bytes, UNIFIED_MAX_BYTES):
@@ -751,6 +757,12 @@ class HNSWIndex:
                 "allow_replace_deleted": self.allow_replace_deleted,
             },
         )
+
+    def export_adj(self, path: str) -> None:
+        """Write the reference-compatible adjacency file (format:
+        index_builder/build.cpp:14-21) through the native streaming writer;
+        `io.adj.write_adj` writes the same bytes from a graph."""
+        self._builder.export_adj(path)
 
     @classmethod
     def load(cls, path: str, device="cuda") -> "HNSWIndex":

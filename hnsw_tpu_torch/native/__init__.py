@@ -1,10 +1,11 @@
-"""ctypes bindings for the native C++ graph builder.
+"""ctypes bindings for the native C++ graph builder and vector store.
 
 The port does not import the reference package (every module of it imports
-jax). It compiles the reference's unchanged source
-``hnsw_tpu/native/builder.cpp``, read by path, with the reference's flags
-(``g++ -O3 -march=native -std=c++20 -shared -fPIC``) into
-``hnsw_tpu_torch/_build/libbuilder.so``, and binds the same C ABI.
+jax). It compiles the reference's unchanged sources
+``hnsw_tpu/native/builder.cpp`` and ``hnsw_tpu/native/vecstore.cpp``, read
+by path, with the reference's flags (``g++ -O3 -march=native -std=c++20
+-shared -fPIC``) into ``hnsw_tpu_torch/_build/libbuilder.so`` and
+``libvecstore.so``, and binds the same C ABIs.
 """
 
 from __future__ import annotations
@@ -16,32 +17,63 @@ import threading
 
 from hnsw_tpu_torch.buildutil import BUILD_DIR, PKG_DIR, build_if_stale
 
-BUILDER_SRC = os.path.join(
-    os.path.dirname(PKG_DIR), "hnsw_tpu", "native", "builder.cpp"
-)
+_NATIVE_DIR = os.path.join(os.path.dirname(PKG_DIR), "hnsw_tpu", "native")
+BUILDER_SRC = os.path.join(_NATIVE_DIR, "builder.cpp")
+VECSTORE_SRC = os.path.join(_NATIVE_DIR, "vecstore.cpp")
 _LOCK = threading.Lock()
-_LIB: list[ctypes.CDLL] = []
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _compile(tmp: str) -> None:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++20", "-shared", "-fPIC",
-        "-o", tmp, BUILDER_SRC,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+def _load(name: str, src: str, declare) -> ctypes.CDLL:
+    """Compile `src` into _build/lib<name>.so (if stale) and dlopen it."""
+
+    def compile_to(tmp: str) -> None:
+        cmd = [
+            "g++", "-O3", "-march=native", "-std=c++20", "-shared", "-fPIC",
+            "-o", tmp, src,
+        ]
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+
+    with _LOCK:
+        if name not in _LIBS:
+            so = build_if_stale(
+                os.path.join(BUILD_DIR, f"lib{name}.so"), [src], compile_to
+            )
+            lib = ctypes.CDLL(so)
+            declare(lib)
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def load_builder_lib() -> ctypes.CDLL:
-    with _LOCK:
-        if _LIB:
-            return _LIB[0]
-        so = build_if_stale(
-            os.path.join(BUILD_DIR, "libbuilder.so"), [BUILDER_SRC], _compile
-        )
-        lib = ctypes.CDLL(so)
-        _declare(lib)
-        _LIB.append(lib)
-        return lib
+    return _load("builder", BUILDER_SRC, _declare)
+
+
+def load_vecstore_lib() -> ctypes.CDLL:
+    return _load("vecstore", VECSTORE_SRC, _declare_vecstore)
+
+
+def _declare_vecstore(lib: ctypes.CDLL) -> None:
+    """Signature table, the same as hnsw_tpu/native/__init__.py's
+    load_vecstore_lib."""
+    c = ctypes
+    P = c.POINTER
+    lib.vs_open.restype = c.c_void_p
+    lib.vs_open.argtypes = [c.c_char_p]
+    lib.vs_close.argtypes = [c.c_void_p]
+    lib.vs_put.restype = c.c_int
+    lib.vs_put.argtypes = [c.c_void_p, c.c_uint32, c.c_uint32, P(c.c_float)]
+    lib.vs_flush.restype = c.c_int
+    lib.vs_flush.argtypes = [c.c_void_p]
+    lib.vs_get.restype = c.c_int64
+    lib.vs_get.argtypes = [c.c_void_p, c.c_uint32, P(c.c_float), c.c_int64]
+    lib.vs_batch_get.restype = c.c_int
+    lib.vs_batch_get.argtypes = [
+        c.c_void_p, P(c.c_uint32), c.c_int64, c.c_uint32, P(c.c_float), P(c.c_uint8),
+    ]
+    lib.vs_count.restype = c.c_int64
+    lib.vs_count.argtypes = [c.c_void_p]
+    lib.vs_ids.argtypes = [c.c_void_p, P(c.c_uint32)]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
