@@ -1308,6 +1308,14 @@ def phase5(dev, launches) -> dict:
                 times.append(time.time() - t)
             labs[mode] = result_ids(res["results"])
             qps[mode] = NQ_SERVE / float(np.median(times))
+        # the same queries through the engine alone: what the HTTP front
+        # end (JSON both ways) adds to a /search_batch
+        times = []
+        for _ in range(3):
+            t = time.time()
+            eng.search(q, K, 200)
+            times.append(time.time() - t)
+        qps["engine_default"] = NQ_SERVE / float(np.median(times))
         # single queries from 16 clients at once, coalesced by the
         # micro-batcher at the bucket of (k=10, ef=200)
         lat = []
@@ -1326,8 +1334,10 @@ def phase5(dev, launches) -> dict:
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            t.join(timeout=600)
         single_s = time.time() - t0
+        if any(t.is_alive() for t in threads):
+            fail("(a) single /search clients still waiting after 600 s")
         kb, efb = qs._MicroBatcher._bucket(K, 200)
         at_bucket = http(f"{url_a}/search_batch", json.dumps(
             {"queries": q[:N_SINGLE].tolist(), "k": kb, "ef": efb}).encode())["results"]
@@ -1346,6 +1356,7 @@ def phase5(dev, launches) -> dict:
         log(f"[phase5] (a) normal mode: start-up {start_a:.1f}s (load + tables + warm), "
             f"tier {eng.tier}; /search_batch of {NQ_SERVE}: " + ", ".join(
                 f"{m} recall@10 {rec[m]:.4f} at {qps[m]:.0f} qps" for m in rec)
+            + f"; the engine alone {qps['engine_default']:.0f} qps (default mode)"
             + f"; native CPU engine (search_cpu, ef=200) {rec_cpu:.4f}")
         log(f"[phase5] (a) {N_SINGLE} single /search from {N_CLIENTS} clients: "
             f"{N_SINGLE / single_s:.0f} qps, latency p50 {p50:.2f} ms p99 {p99:.2f} ms; "
@@ -1380,10 +1391,18 @@ def phase5(dev, launches) -> dict:
         lab_b = result_ids(res["results"])
         same = float(np.mean((lab_b == labs["default"]).all(1)))
         mem_b = http(f"{url_b}/mem")["rss_kb"]
+        # what any fresh process with torch and a CUDA context holds: the
+        # floor under (b)'s RSS
+        mem_floor = int(subprocess.run(
+            [sys.executable, "-c", "import torch; torch.zeros(1, device='cuda'); "
+             "from hnsw_tpu_torch.utils.rss import current_rss_kb; print(current_rss_kb())"],
+            cwd=repo, capture_output=True, text=True, check=True, timeout=300,
+        ).stdout.split()[-1])
         qps["optimized"] = NQ_SERVE / float(np.median(times))
         log(f"[phase5] (b) optimized mode (own process, .adj + one bulk fetch): start-up "
             f"{start_b:.1f}s to /info; {qps['optimized']:.0f} qps; {same:.4f} of the queries "
-            f"return (a)'s ids; /mem {mem_b} kB against (a)'s {mem_a} kB")
+            f"return (a)'s ids; /mem {mem_b} kB against (a)'s {mem_a} kB; a fresh process "
+            f"with torch and a CUDA context: {mem_floor} kB")
         if same < 0.999:
             fail(f"(b) only {same} of the queries return the normal mode's ids")
 
@@ -1417,7 +1436,8 @@ def phase5(dev, launches) -> dict:
         out.update(recall={**rec, "cpu_engine": rec_cpu, "c": rec_c, "c_rescore40": rec_c40},
                    qps=qps, single={"qps": N_SINGLE / single_s, "p50_ms": p50, "p99_ms": p99},
                    startup_s={"a": start_a, "b": start_b, "c": start_c},
-                   rss_kb={"a": mem_a, "b": mem_b}, optimized_same=same,
+                   rss_kb={"a": mem_a, "b": mem_b, "torch_cuda_floor": mem_floor},
+                   optimized_same=same,
                    launches={"a": counts, "c": counts_c})
         del eng_c
         return out

@@ -388,20 +388,17 @@ class HNSWIndex:
         self._dirty_deleted = False
         return self._device
 
-    def _free_share(self) -> int | None:
-        return free_share(self.device)
-
     def _unified_budget(self) -> int | None:
         for cap in (self.unified_max_bytes, UNIFIED_MAX_BYTES):
             if cap is not None:
                 return cap
-        return self._free_share()
+        return free_share(self.device)
 
     def _split_budget(self) -> int | None:
         for cap in (self.split_max_bytes, SPLIT_MAX_BYTES):
             if cap is not None:
                 return cap
-        return self._free_share()
+        return free_share(self.device)
 
     def _full_sync(self) -> None:
         """Rebuild every device tensor from the host engine. The previous

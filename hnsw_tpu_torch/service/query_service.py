@@ -130,7 +130,9 @@ class _Engine:
         self.sq = (x32 * x32).sum(-1) if self.space_obj.needs_sq_norms else None
         del x32
         self.inline = None  # InlineTables of the tier served, or None
-        if self.device.type == "cuda" if tables is None else tables:
+        if tables is None:
+            tables = self.device.type == "cuda"
+        if tables:
             self.inline = self._build_tables()
         self.labels_np = self.dg.labels.cpu().numpy()
         # markDelete semantics (hnswalg.h:853-900): delete-marked elements
@@ -501,7 +503,8 @@ def _fetch_bulk_vectors(storage: str, dim: int, retries: int = 3):
             ) as r:
                 head = r.read(8)
                 count, d = struct.unpack("<II", head)
-                assert d == dim
+                if d != dim:
+                    raise ValueError(f"the store holds dim {d}, not {dim}")
                 buf = np.empty(count * rec_size, dtype=np.uint8)
                 got = 0
                 total = count * rec_size
@@ -566,8 +569,9 @@ def build_engine(
     # map storage ids (= labels) onto graph internal order (vectorized)
     sort_idx = np.argsort(ids)
     pos = np.searchsorted(ids, g.labels, sorter=sort_idx)
-    order = sort_idx[pos]
-    assert np.array_equal(ids[order], g.labels), "storage/graph label mismatch"
+    order = sort_idx[np.minimum(pos, len(ids) - 1)]
+    if not np.array_equal(ids[order], g.labels):
+        raise ValueError("storage/graph label mismatch")
     # the fetched rows go to the card as they are and are put in the
     # graph's order there: no second copy of them on the host
     rows = torch.as_tensor(vecs).to(dev)
@@ -702,7 +706,7 @@ def serve(engine: _Engine, port: int = 8080):
     httpd.serve_forever()
 
 
-def main(argv=None):
+def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="./hnsw_index.npz")
     ap.add_argument("--storage", default="http://127.0.0.1:8081")
@@ -744,7 +748,7 @@ def main(argv=None):
     ap.add_argument("--mem_cap_mb", type=int, default=0)
     # where the engine runs: cuda (default; raises without a card) or cpu
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    args = ap.parse_args()
     if args.mem_cap_mb > 0:
         from hnsw_tpu_torch.utils.rss import apply_mem_cap
 

@@ -175,6 +175,15 @@ def _tiny_graph():
                      np.zeros(4, np.int32), np.arange(4, dtype=np.int64), 0, 0)
 
 
+def test_optimized_rejects_a_store_that_lacks_a_label(shared, monkeypatch):
+    ids, vecs = shared["bulk"]
+    short = (ids[ids != LABELS[5]], vecs[ids != LABELS[5]])
+    monkeypatch.setattr(tqs, "_fetch_bulk_vectors", _fake_fetch(short))
+    with pytest.raises(ValueError, match="label mismatch"):
+        tqs.build_engine(shared["ckpt"], True, "http://storage.invalid", D, EF, K,
+                         device="cpu")
+
+
 def test_engine_without_cuda_raises(shared):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -213,6 +222,7 @@ def test_micro_batcher_equals_search_at_bucket(shared, monkeypatch):
         t.start()
     for t in threads:
         t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and all(g is not None for g in got)
     for i, (qv, k, ef, entry, mode, filt) in enumerate(reqs):
         kb, efb = tqs._MicroBatcher._bucket(k, ef)
         wd, wl = te.search(qv[None], kb, efb,
