@@ -4,15 +4,17 @@ The JAX package ``hnsw_tpu`` stays the reference; this package imports
 ``torch`` and never ``jax``. It keeps the reference's module names:
 
 - ``core``: spaces and padded-CSR graphs (host numpy, device tensors);
-- ``native``: the reference's C++ builder, compiled by path and bound with
-  ctypes;
-- ``io``: the reference's .npz checkpoint format;
+- ``native``: the reference's C++ builder and vector store, compiled by
+  path and bound with ctypes;
+- ``io``: the reference's .npz checkpoint and .adj adjacency formats;
 - ``ops``: distances, top-k, the unified node-block tables of the bf16,
   int8 and int4 tiers and the split table with their hand-written CUDA
   kernels (``ops.gather_kernels``, sources in ``csrc/``), and the batched
   beam traversal;
 - ``models``: the exact bruteforce oracle, HNSWIndex (with its row-delta
   device sync) and the device-wave ``bulk_build``;
+- ``service``: the deployment's builder CLI, storage service and query
+  service (``python -m hnsw_tpu_torch.service.<name>``);
 - ``convert``: numpy-only conversion of the JAX package's state.
 """
 

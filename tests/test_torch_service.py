@@ -200,7 +200,9 @@ def test_bucket_matches_jax():
 def test_micro_batcher_equals_search_at_bucket(shared, monkeypatch):
     """64 submits from 4 threads with mixed (k, ef), modes, entry ids and
     filters: each answer is the engine's own search of that query at its
-    (k, ef) bucket, cut to its k."""
+    (k, ef) bucket, cut to its k. The seeded mode's seed distances come
+    from one matmul over the micro-batch, whose float sums depend on the
+    batch's size, so distances are held to 1e-5 relative; labels exactly."""
     _, te = _engines(shared, "normal", monkeypatch)
     rng = np.random.default_rng(3)
     reqs = []
@@ -229,7 +231,7 @@ def test_micro_batcher_equals_search_at_bucket(shared, monkeypatch):
                            entry_ids=None if entry is None else np.array([entry]),
                            mode=mode, filters=None if filt is None else [filt])
         np.testing.assert_array_equal(got[i][1], wl[0][:k])
-        np.testing.assert_array_equal(got[i][0], wd[0][:k])
+        np.testing.assert_allclose(got[i][0], wd[0][:k], rtol=1e-5, atol=0)
 
 
 def _same_graph(a, b):
