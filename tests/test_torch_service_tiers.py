@@ -26,7 +26,6 @@ from hnsw_tpu_torch.ops.gather_kernels import COUNTS, tier_bytes
 from hnsw_tpu_torch.service import query_service as tqs
 
 N, D, M, EFC, B, K, EF = 1500, 24, 8, 100, 16, 10, 48
-LABELS = np.arange(N, dtype=np.int64) * 3 + 7
 MODES = {"speed": {"stop_frontier": 1.15, "max_iters": 14, "entry_seeds": 4, "ef": 40},
          "rescore": {"rescore": 40, "entry_seeds": 4}}
 JAX_BF16_BYTES = 13 * 2**30  # hnsw_tpu.models.hnsw.UNIFIED_MAX_BYTES
