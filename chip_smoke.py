@@ -44,6 +44,14 @@ Phase 5  the deployment path as users run it, at the reference builder's
          Gates: recall against the CPU engine, single answers against the
          batch at their bucket, (b)'s ids against (a)'s, (c)'s recall and
          tier, and the launches of rows 1, 2, 3 and 5.
+Phase 6  hnswlib interop and the calibrated speed mode (run after phase 4,
+         on its indexes and phase 2's, then freed before phase 5):
+         (a) calibrate_speed_mode on phase 2's index, served at batch 8192
+         behind phase 2 (a)'s recall gate; (b) that index through
+         save_hnswlib and HNSWIndex.from_hnswlib onto the card, held to the
+         original's graph, vectors and answers at ef=200 and in phase 2
+         (c)'s rescore mode; (c) the same round trip for phase 4 (h)'s 1M
+         index. The launches of rows 1 and 2 are read around each mode.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -52,6 +60,7 @@ its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -764,7 +773,8 @@ def phase2(dev, launches) -> dict:
         fail("(c) distances disagree with the oracle's")
     return {"recall": {"a": rec_a, "b": rec_b, "c": rec_c},
             "qps": {"a": qps_a, "b": qps_b, "c": qps_c},
-            "data": (x, q[:1024], gt[:1024])}  # for phase 4 (g)
+            "data": (x, q[:1024], gt[:1024]),  # for phase 4 (g)
+            "serve": (idx, q, gt, pc)}  # for phase 6
 
 
 def oracle_error(d, lab, q, x, gt, gt_d) -> float:
@@ -1020,7 +1030,7 @@ def profile_wave(idx, x, dev) -> dict:
             "hop_ms_per_launch": hop_ms / max(hop_launches, 1)}
 
 
-def phase4(dev, launches, p2) -> dict:
+def phase4(dev, launches, p2) -> tuple[dict, tuple]:
     import torch
 
     from hnsw_tpu_torch import BruteforceIndex, L2Space, SearchParams, bulk_build
@@ -1162,7 +1172,7 @@ def phase4(dev, launches, p2) -> dict:
         fail(f"(h) inserted vectors found at rank 1: {found}; plain_on_cuda "
              f"{COUNTS.plain_on_cuda}")
     out["h"]["inserts_found"] = found
-    return out
+    return out, (idx, q)  # (h)'s index for phase 6 (c)
 
 
 # ---------------------------------------------------------------------------
@@ -1454,6 +1464,135 @@ def phase5(dev, launches) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: hnswlib interop and the calibrated speed mode.
+# ---------------------------------------------------------------------------
+
+
+def same_graph(a, b) -> bool:
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("level0", "upper", "labels", "node_level"))
+            and (a.entry_point, a.max_level) == (b.entry_point, b.max_level))
+
+
+def round_trip(idx, path, dev) -> tuple:
+    """save_hnswlib then from_hnswlib onto the card, with the seconds of the
+    write, the import and the imported index's first (full) sync."""
+    import torch
+
+    from hnsw_tpu_torch import HNSWIndex
+
+    t0 = time.time()
+    idx.save_hnswlib(path)
+    t_write = time.time() - t0
+    t0 = time.time()
+    imp = HNSWIndex.from_hnswlib(path, "l2", device=dev)
+    t_import = time.time() - t0
+    t0 = time.time()
+    imp._sync_device()
+    torch.cuda.synchronize()
+    secs = {"bytes": os.path.getsize(path), "write_s": t_write, "import_s": t_import,
+            "sync_s": time.time() - t0}
+    return imp, secs
+
+
+def same_answers(name, idx, imp, qs, launches, **kw) -> dict:
+    """The imported index's labels equal the original's on every query, and
+    its distances to 1e-5 relative."""
+    d0, l0 = idx.search(qs, **kw)
+    d1, l1, qps, counts = run_mode(imp, name, qs, 1, launches, **kw)
+    same = float(np.mean((l1 == l0).all(1)))
+    if same < 1.0 or not np.allclose(d1, d0, rtol=1e-5, atol=0):
+        fail(f"({name}) the imported index returned the original's labels on {same:.4f} of "
+             f"the queries; worst distance error {np.abs(d1 - d0).max()}")
+    return {"qps": qps, "launches": counts}
+
+
+def phase6(dev, launches, p2, big) -> dict:
+    """(a) calibrate_speed_mode on phase 2's index (N=100k, d=128, M=16,
+    efC=200), served at batch 8192 behind phase 2 (a)'s recall gate; (b) its
+    .bin round trip, held to the original's answers at ef=200 and in phase 2
+    (c)'s rescore mode; (c) the same for phase 4 (h)'s 1M bulk-built index."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
+
+    idx, q, gt, pc = p2["serve"]
+    out: dict = {}
+    t_phase = time.time()
+
+    # (a) the calibrated speed mode at the operating point
+    torch.cuda.synchronize()
+    COUNTS.reset()
+    t0 = time.time()
+    sp = idx.calibrate_speed_mode(k=K, ef=160, stop_frontier=1.15, entry_seeds=4)
+    torch.cuda.synchronize()
+    t_probe = time.time() - t0
+    probe = {f: getattr(COUNTS, f) for f in launches}
+    if COUNTS.plain_on_cuda:
+        fail(f"(6a) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
+    need_launch("6a probe", probe, "hop_dist_unified")
+    for f, c in probe.items():
+        launches[f] += c
+    _, lab, qps, counts = run_mode(idx, "6a", q, 5, launches, params=sp)
+    need_launch("6a", counts, "hop_dist_unified")
+    rec = recall(lab, gt)
+    log(f"[phase6] (a) calibrate_speed_mode(k=10, ef=160, stop_frontier=1.15, entry_seeds=4): "
+        f"max_iters {sp.max_iters} (bench.py's hand-set 14), probe of "
+        f"{min(2048, idx.num_elements)} queries {t_probe:.2f}s; batch {len(q)}: recall@10 {rec:.4f}, {qps:.0f} qps (phase 2 (a) "
+        f"{p2['recall']['a']:.4f}, {p2['qps']['a']:.0f} qps), hop launches "
+        f"{counts['hop_dist_unified']} (probe {probe['hop_dist_unified']})")
+    if rec < 0.95:
+        fail(f"(6a) recall {rec} < 0.95")
+    out["a"] = {"max_iters": sp.max_iters, "probe_s": t_probe, "recall": rec, "qps": qps,
+                "launches": counts, "probe_launches": probe}
+
+    tmp = tempfile.mkdtemp(prefix="hnsw_phase6_")
+    try:
+        # (b) the .bin round trip at 100k
+        imp, secs = round_trip(idx, os.path.join(tmp, "n100k.bin"), dev)
+        if not same_graph(imp.graph, idx.graph):
+            fail("(6b) the imported graph differs from the original's")
+        if not np.array_equal(imp._builder.export_vectors(), idx._builder.export_vectors()):
+            fail("(6b) the imported vectors differ from the original's")
+        qs = q[:1024]
+        out["b"] = {**secs, "default": same_answers("6b", idx, imp, qs, launches, k=K, ef=200),
+                    "rescore": same_answers("6b rescore", idx, imp, qs, launches, params=pc)}
+        need_launch("6b", out["b"]["default"]["launches"], "hop_dist_unified")
+        need_launch("6b rescore", out["b"]["rescore"]["launches"], "hop_dist_unified",
+                    "gather_dist_rows")
+        log(f"[phase6] (b) .bin round trip N={idx.num_elements}: {secs['bytes'] / 1e6:.1f} MB, write "
+            f"{secs['write_s']:.2f}s, import {secs['import_s']:.2f}s, first sync "
+            f"{secs['sync_s']:.2f}s; graph and vectors equal; labels equal on every one of "
+            f"{len(qs)} queries at ef=200 ({out['b']['default']['qps']:.0f} qps) and with "
+            f"rescore 40 ({out['b']['rescore']['qps']:.0f} qps)")
+        del imp
+
+        # (c) the .bin round trip of the 1M bulk-built index; the original is
+        # synced afresh first, so both serve a full sync of the same graph
+        bidx, bq = big
+        bidx.rebuild_device_tables()
+        imp, secs = round_trip(bidx, os.path.join(tmp, "n1m.bin"), dev)
+        out["c"] = {**secs, "default": same_answers("6c", bidx, imp, bq, launches, k=K, ef=200)}
+        need_launch("6c", out["c"]["default"]["launches"], "hop_dist_unified")
+        log(f"[phase6] (c) .bin round trip N={bidx.num_elements}: {secs['bytes'] / 1e6:.1f} "
+            f"MB, write {secs['write_s']:.2f}s, import {secs['import_s']:.2f}s, first sync "
+            f"{secs['sync_s']:.2f}s; labels equal on every one of {len(bq)} queries at "
+            f"ef=200 ({out['c']['default']['qps']:.0f} qps)")
+        del imp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    log(f"[phase6] {out['seconds']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1476,11 +1615,13 @@ def main() -> int:
     p2 = phase2(dev, launches)
     p3 = phase3(dev, launches)
     torch.cuda.empty_cache()  # phase 3's index is gone: phase 4 gets the card
-    p4 = phase4(dev, launches, p2)
+    p4, big = phase4(dev, launches, p2)
+    p6 = phase6(dev, launches, p2, big)
+    del big, p2["serve"]  # the 1M and 100k indexes: phase 5 gets the card
     torch.cuda.empty_cache()
     p5 = phase5(dev, launches)
     log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"], "tiers": p3,
-                                "bulk_build": p4, "deployment": p5,
+                                "bulk_build": p4, "deployment": p5, "interop": p6,
                                 "seconds": time.time() - t_start, "device": smi}}))
     rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
         ("hop_dist_unified", "hop_bf16", "hop_ring.cuh", "pallas_gather.py:795"),

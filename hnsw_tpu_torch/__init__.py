@@ -6,7 +6,8 @@ The JAX package ``hnsw_tpu`` stays the reference; this package imports
 - ``core``: spaces and padded-CSR graphs (host numpy, device tensors);
 - ``native``: the reference's C++ builder and vector store, compiled by
   path and bound with ctypes;
-- ``io``: the reference's .npz checkpoint and .adj adjacency formats;
+- ``io``: the reference's .npz checkpoint and .adj adjacency formats, and
+  hnswlib's .bin index format;
 - ``ops``: distances, top-k, the unified node-block tables of the bf16,
   int8 and int4 tiers and the split table with their hand-written CUDA
   kernels (``ops.gather_kernels``, sources in ``csrc/``), and the batched

@@ -581,6 +581,21 @@ class HNSWIndex:
         self._dirty = True
         return self._sync_device()
 
+    @property
+    def device_graph(self):
+        """The synced DeviceGraph (padded-CSR tensors on the index's device)."""
+        return self._sync_device().graph
+
+    @property
+    def device_vectors(self) -> torch.Tensor:
+        """The synced [N_pad, D] vector table in the space's storage dtype."""
+        return self._sync_device().vectors
+
+    @property
+    def device_sq_norms(self) -> torch.Tensor | None:
+        """The synced [N_pad] squared norms (None outside the l2 space)."""
+        return self._sync_device().sq_norms
+
     def _refresh_deleted(self) -> None:
         """Delete-marks touch no graph or vector state: refresh only the
         host-side eligibility mask."""
@@ -676,7 +691,9 @@ class HNSWIndex:
             collect_metrics=params.collect_metrics,
             stop_patience=params.stop_patience,
             stop_frontier=params.stop_frontier,
-            frontier_rank=params.frontier_rank,
+            # the rank only means something under a frontier stop: the JAX
+            # search ignores it without one, search_batch raises
+            frontier_rank=params.frontier_rank if params.stop_frontier > 0 else 0,
             stop_fn=params.stop_fn,
             **seed_kwargs,
         )
@@ -708,6 +725,64 @@ class HNSWIndex:
         lm = landmark_arrays(st.graph, st.vectors, st.sq_norms, pool_extra=pool_extra)
         self._landmark_cache = (self._device, pool_extra, lm)
         return lm
+
+    def calibrate_speed_mode(
+        self,
+        queries: np.ndarray | None = None,
+        *,
+        k: int = 10,
+        ef: int = 200,
+        expand: int = 2,
+        stop_frontier: float = 1.15,
+        percentile: float = 99.9,
+        margin: int = 2,
+        sample: int = 2048,
+        seed: int = 0,
+        entry_seeds: int = 0,
+        seed_pool: int = 0,
+    ) -> SearchParams:
+        """Tune the frontier-stopped speed mode for this index and operating
+        point; returns the SearchParams and stores them as
+        `self.speed_params`.
+
+        The batch runs in lockstep, so a batch takes as long as its slowest
+        query; the frontier stop (the reference's lower-bound cut,
+        hnswalg.h:342-436, relaxed by `stop_frontier`) leaves a tail of
+        stragglers far past the p99. Late iterations almost never improve
+        the top k, so the iteration cap is the `percentile` of the
+        LAST-IMPROVEMENT iteration (when each query's k-th best distance
+        last fell) plus `margin`, at least 1; a cap that would not bind
+        (>= 2 * max(ef, k) + 16) is left at 0.
+
+        `queries`: the probe batch; by default `sample` stored rows drawn
+        with default_rng(seed), plus gaussian noise of 0.05 (self-queries,
+        the reference's methodology, bin/experiment.py:160-234)."""
+        if queries is None:
+            n = self.num_elements
+            rng = np.random.default_rng(seed)
+            rows = rng.integers(0, n, size=min(sample, n))
+            base = self._builder.export_vectors_rows(
+                rows.astype(np.int64)
+            ).astype(np.float32)
+            queries = base + 0.05 * rng.standard_normal(
+                base.shape
+            ).astype(np.float32)
+        probe = SearchParams(
+            k=k, ef=max(ef, k), expand=expand,
+            stop_frontier=stop_frontier, collect_metrics=True,
+            entry_seeds=entry_seeds, seed_pool=seed_pool,
+        )
+        self.search(queries, params=probe)
+        last = np.asarray(self.last_metrics.last_improve)
+        cap = max(int(np.percentile(last, percentile)) + int(margin), 1)
+        if cap >= 2 * max(ef, k) + 16:
+            cap = 0  # the cap would never bind: leave the search uncapped
+        self.speed_params = SearchParams(
+            k=k, ef=max(ef, k), expand=expand,
+            stop_frontier=stop_frontier, max_iters=cap,
+            entry_seeds=entry_seeds, seed_pool=seed_pool,
+        )
+        return self.speed_params
 
     def search_cpu(
         self,
@@ -755,6 +830,23 @@ class HNSWIndex:
             },
         )
 
+    def save_hnswlib(self, path: str) -> None:
+        """Write stock hnswlib's saveIndex format (hnswlib/hnswalg.h:685-713),
+        which hnswlib's loadIndex reads: f32 rows for 'l2' and 'ip', the
+        normalized rows for 'cosine' (load over InnerProductSpace), u8 codes
+        for 'l2u8' (L2SpaceI)."""
+        from hnsw_tpu_torch.io.hnswbin import write_bin
+
+        vectors = self._builder.export_vectors()
+        name = self.space.persist_name
+        if name == "l2u8":
+            vectors = self.space.decode(vectors)  # back to the u8 range
+        write_bin(
+            path, self._builder.export_graph(), vectors,
+            self._builder.export_deleted(), space=name, m=self.m,
+            ef_construction=self.ef_construction,
+        )
+
     def export_adj(self, path: str) -> None:
         """Write the reference-compatible adjacency file (format:
         index_builder/build.cpp:14-21) through the native streaming writer;
@@ -782,3 +874,28 @@ class HNSWIndex:
             ef_construction=meta["ef_construction"],
         )
         return self
+
+    @classmethod
+    def from_hnswlib(cls, path: str, space: str = "l2", device="cuda") -> "HNSWIndex":
+        """Import a stock hnswlib index file (the saveIndex format,
+        hnswlib/hnswalg.h:685-822): topology, vectors, labels and delete
+        marks. `space` is the space the file was built over: 'l2', 'ip' or
+        'cosine' (f32 data) or 'l2u8' (the integer L2SpaceI layout). The
+        index lands on `device` at its first search."""
+        from hnsw_tpu_torch.io.hnswbin import read_bin
+
+        dev = resolve_device(device)
+        g, vectors, deleted, meta = read_bin(path, space=space)
+        sp = get_space(space, meta["dim"])
+        # the file holds the raw inserted values; the index stores the
+        # space's preprocessed form (l2u8's shift, cosine's normalization,
+        # which leaves normalized rows as they are)
+        internal = sp.preprocess(vectors) if g.num_nodes else np.zeros(
+            (0, meta["dim"]), np.float32
+        )
+        return cls._from_parts(
+            g, internal, deleted,
+            {"space": space, "dim": meta["dim"], "m": meta["m"],
+             "ef_construction": meta["ef_construction"]},
+            device=dev,
+        )

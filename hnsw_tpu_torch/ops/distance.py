@@ -72,22 +72,43 @@ def pairwise_dist(
     raise ValueError(f"unknown space {space!r} (expected 'l2' or 'ip')")
 
 
-def gather_dist(
-    q: torch.Tensor, x: torch.Tensor, ids: torch.Tensor, space: str, *,
+def gather_l2_sq(
+    q: torch.Tensor, x: torch.Tensor, ids: torch.Tensor, *,
     x_sq_norms: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Distance from q[b] to x[ids[b, k]] → [B, K] through a plain row
-    gather (the reference's XLA-gather path). ids must be in range."""
+    """Squared-L2 from q[b] to x[ids[b, k]] → [B, K] through a plain row
+    gather (the reference's XLA-gather path), with the rows' squared norms
+    taken from `x_sq_norms` ([N]) when given. ids must be in range."""
     rows = x[ids.long()].float()  # [B, K, D]
     q32 = q.float()
     qx = (rows * q32[:, None, :]).sum(-1)  # [B, K]
-    if space == "ip":
-        return 1.0 - qx
-    if space != "l2":
-        raise ValueError(f"unknown space {space!r} (expected 'l2' or 'ip')")
     qq = (q32 * q32).sum(-1, keepdim=True)
     if x_sq_norms is not None:
         xx = x_sq_norms[ids.long()]
     else:
         xx = (rows * rows).sum(-1)
     return (qq + xx - 2.0 * qx).clamp_min_(0.0)
+
+
+def gather_ip_dist(q: torch.Tensor, x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Inner-product distance 1 - <q[b], x[ids[b, k]]> → [B, K]."""
+    rows = x[ids.long()].float()
+    return 1.0 - (rows * q.float()[:, None, :]).sum(-1)
+
+
+def gather_dist(
+    q: torch.Tensor, x: torch.Tensor, ids: torch.Tensor, space: str, *,
+    x_sq_norms: torch.Tensor | None = None,
+) -> torch.Tensor:
+    if space == "l2":
+        return gather_l2_sq(q, x, ids, x_sq_norms=x_sq_norms)
+    if space == "ip":
+        return gather_ip_dist(q, x, ids)
+    raise ValueError(f"unknown space {space!r} (expected 'l2' or 'ip')")
+
+
+def dist_one(a: torch.Tensor, b: torch.Tensor, space: str = "l2") -> torch.Tensor:
+    """The distance of one pair (a 0-d tensor), for parity checks against the
+    reference's scalar distances (hnswlib/space_l2.h:7-24,
+    hnswlib/space_ip.h:7-23)."""
+    return pairwise_dist(a.reshape(1, -1), b.reshape(1, -1), space)[0, 0]
