@@ -52,6 +52,17 @@ Phase 6  hnswlib interop and the calibrated speed mode (run after phase 4,
          original's graph, vectors and answers at ef=200 and in phase 2
          (c)'s rescore mode; (c) the same round trip for phase 4 (h)'s 1M
          index. The launches of rows 1 and 2 are read around each mode.
+Phase 7  the stop-condition searches and the native frontends: (a)
+         epsilon_search on phase 2's index (run after phase 6, before it is
+         freed), epsilon the median exact 100th-nearest distance, up to 256
+         points per query, the device beam against the native CPU engine;
+         (b) a MultiVectorIndex of 3,125 documents x 32 vectors (N=100k,
+         d=128) built with add_document, top-10 documents against the exact
+         per-document min; (c) after phase 5, on its deployment: the
+         reference's C++ storage_main and query_main built by
+         hnsw_tpu_torch.native.build_binary, normal and optimized mode,
+         256 single /search each against the port's search_cpu. Row 1's
+         launches are read around (a) and (b).
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -62,8 +73,11 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -669,27 +683,43 @@ def recall(got: np.ndarray, gt: np.ndarray) -> float:
     return float(np.mean([len(set(got[i]) & set(gt[i])) / K for i in range(len(gt))]))
 
 
-def run_mode(idx, name, qs, reps, launches, **kw):
-    """Search `qs` `reps` times with the kernels' counts set to 0 just before
-    and read just after; adds the counts to `launches`. Fails if a plain
-    version ran on a CUDA tensor or the results are malformed."""
+def counted(name, launches, fn):
+    """Run `fn` with the kernels' counts set to 0 just before and read just
+    after → (fn's result, seconds, counts); adds the counts to `launches`.
+    Fails if a plain version ran on a CUDA tensor."""
     import torch
 
     from hnsw_tpu_torch.ops.gather_kernels import COUNTS
 
-    idx.search(qs[:16], **kw)  # warm-up (allocator, kernel load)
     torch.cuda.synchronize()
     COUNTS.reset()
-    times = []
-    for _ in range(reps):
-        t = time.time()
-        d, lab = idx.search(qs, **kw)
-        times.append(time.time() - t)
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
     counts = {f: getattr(COUNTS, f) for f in launches}
     if COUNTS.plain_on_cuda:
-        fail(f"mode {name}: a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
+        fail(f"({name}) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
     for f, c in counts.items():
         launches[f] += c
+    return out, secs, counts
+
+
+def run_mode(idx, name, qs, reps, launches, **kw):
+    """Search `qs` `reps` times with the kernels' counts set to 0 just before
+    and read just after; adds the counts to `launches`. Fails if a plain
+    version ran on a CUDA tensor or the results are malformed."""
+
+    def searches():
+        times = []
+        for _ in range(reps):
+            t = time.time()
+            d, lab = idx.search(qs, **kw)
+            times.append(time.time() - t)
+        return d, lab, times
+
+    idx.search(qs[:16], **kw)  # warm-up (allocator, kernel load)
+    (d, lab, times), _, counts = counted(f"mode {name}", launches, searches)
     if d.shape != (len(qs), K) or not np.isfinite(d).all() or (lab < 0).any():
         fail(f"mode {name}: malformed results")
     qps = len(qs) / float(np.median(times))
@@ -1220,6 +1250,19 @@ def wait_ready(url: str, proc, log_path: str, timeout: float = 600):
     fail(f"{url}: no answer within {timeout} s")
 
 
+def stop_all(procs) -> None:
+    """Terminate every process in `procs` and wait for each (kill after
+    30 s)."""
+    for proc in procs:
+        proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 def result_ids(results, k=K) -> np.ndarray:
     """The ids of /search_batch's per-query result lists, -1 where a list is
     short."""
@@ -1230,17 +1273,23 @@ def result_ids(results, k=K) -> np.ndarray:
     return out
 
 
-def phase5(dev, launches) -> dict:
+def deployment_data() -> tuple[np.ndarray, np.ndarray]:
+    """builder_cli's N=100k gaussian vectors (default_rng(123)) and the
+    phase's 1,024 gaussian queries."""
+    x = np.random.default_rng(123).normal(size=(N, DIM)).astype(np.float32)
+    q = np.random.default_rng(SEED + 5).normal(size=(NQ_SERVE, DIM)).astype(np.float32)
+    return x, q
+
+
+def phase5(dev, launches, tmp: str | None = None) -> dict:
     """The deployment path as a user runs it, at the reference builder's
     default deployment (N=100k gaussian vectors, d=128, M=16, efC=200, k=10,
     ef=200): builder_cli writes the store and the index; the storage
     service runs as its own process; (a) the normal-mode query service in
     this process (so the launch counters can be read) over HTTP; (b) the
     optimized mode started as users start it; (c) the engine's int8 rung
-    with --hbm_trim, in process."""
-    import os
-    import shutil
-    import tempfile
+    with --hbm_trim, in process. The deployment's files go to `tmp` (kept
+    for phase 7 (c)), else to a temporary directory removed at the end."""
     import threading
 
     import torch
@@ -1253,7 +1302,9 @@ def phase5(dev, launches) -> dict:
     from hnsw_tpu_torch.service import query_service as qs
 
     out: dict = {}
-    tmp = tempfile.mkdtemp(prefix="hnsw_phase5_")
+    own_tmp = tmp is None
+    if own_tmp:
+        tmp = tempfile.mkdtemp(prefix="hnsw_phase5_")
     db, ckpt = os.path.join(tmp, "vec_store.log"), os.path.join(tmp, "hnsw_index.npz")
     procs: list = []
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1281,8 +1332,7 @@ def phase5(dev, launches) -> dict:
         if wait_ready(f"{storage}/info", s_proc, s_log)["count"] != N:
             fail("the storage service does not hold N vectors")
 
-        x = np.random.default_rng(123).normal(size=(N, DIM)).astype(np.float32)  # the builder's
-        q = np.random.default_rng(SEED + 5).normal(size=(NQ_SERVE, DIM)).astype(np.float32)
+        x, q = deployment_data()
         oracle = BruteforceIndex(L2Space(DIM), device=dev)
         oracle.add_items(x, np.arange(N))
         _, gt = oracle.search_knn(q, K)
@@ -1426,15 +1476,8 @@ def phase5(dev, launches) -> dict:
         start_c = time.time() - t0
         if eng_c.tier != "unified8" or eng_c.x.dtype != torch.bfloat16:
             fail(f"(c) tier {eng_c.tier}, vectors {eng_c.x.dtype}: expected unified8 over bf16")
-        torch.cuda.synchronize()
-        COUNTS.reset()
-        _, lab_c = eng_c.search(q, K, 200)
-        _, lab_c40 = eng_c.search(q, K, 200, mode="rescore40")
-        counts_c = {f: getattr(COUNTS, f) for f in launches}
-        if COUNTS.plain_on_cuda:
-            fail(f"(c) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
-        for f, c in counts_c.items():
-            launches[f] += c
+        (lab_c, lab_c40), _, counts_c = counted("5c", launches, lambda: (
+            eng_c.search(q, K, 200)[1], eng_c.search(q, K, 200, mode="rescore40")[1]))
         need_launch("phase 5 (c)", counts_c, "hop_dist_unified8", "gather_dist_bf16")
         rec_c, rec_c40 = recall(lab_c, gt), recall(lab_c40, gt)
         log(f"[phase5] (c) optimized + hbm_trim on {eng_c.tier} (budget "
@@ -1453,15 +1496,9 @@ def phase5(dev, launches) -> dict:
         return out
     finally:
         thnsw.UNIFIED_MAX_BYTES = unified_max
-        for proc in procs:
-            proc.terminate()
-        for proc in procs:
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        stop_all(procs)
+        if own_tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1514,30 +1551,17 @@ def phase6(dev, launches, p2, big) -> dict:
     .bin round trip, held to the original's answers at ef=200 and in phase 2
     (c)'s rescore mode; (c) the same for phase 4 (h)'s 1M bulk-built index."""
     import gc
-    import shutil
-    import tempfile
 
     import torch
-
-    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
 
     idx, q, gt, pc = p2["serve"]
     out: dict = {}
     t_phase = time.time()
 
     # (a) the calibrated speed mode at the operating point
-    torch.cuda.synchronize()
-    COUNTS.reset()
-    t0 = time.time()
-    sp = idx.calibrate_speed_mode(k=K, ef=160, stop_frontier=1.15, entry_seeds=4)
-    torch.cuda.synchronize()
-    t_probe = time.time() - t0
-    probe = {f: getattr(COUNTS, f) for f in launches}
-    if COUNTS.plain_on_cuda:
-        fail(f"(6a) a plain version ran on CUDA tensors {COUNTS.plain_on_cuda} times")
+    sp, t_probe, probe = counted("6a", launches, lambda: idx.calibrate_speed_mode(
+        k=K, ef=160, stop_frontier=1.15, entry_seeds=4))
     need_launch("6a probe", probe, "hop_dist_unified")
-    for f, c in probe.items():
-        launches[f] += c
     _, lab, qps, counts = run_mode(idx, "6a", q, 5, launches, params=sp)
     need_launch("6a", counts, "hop_dist_unified")
     rec = recall(lab, gt)
@@ -1593,6 +1617,321 @@ def phase6(dev, launches, p2, big) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: range search, multi-vector documents and the native frontends.
+# ---------------------------------------------------------------------------
+
+EPS_RANK, EPS_MAX = 100, 256  # epsilon: the median 100th-nearest distance
+N_DOC, PER_DOC, DOC_SPREAD = 3125, 32, 0.5  # 100,000 token vectors
+K_DOCS, OVERSAMPLE, EF_DOCS = 10, 4, 200
+
+
+class LadderLog:
+    """A pass-through index that records each widening step: (k, ef) and
+    the step's (dists, labels)."""
+
+    def __init__(self, index):
+        self.index = index
+        self.steps: list = []
+
+    @property
+    def num_elements(self) -> int:
+        return self.index.num_elements
+
+    @property
+    def dim(self) -> int:
+        return self.index.dim
+
+    def search(self, queries, k, ef):
+        out = self.index.search(queries, k=k, ef=ef)
+        self.steps.append((k, ef, out))
+        return out
+
+    def search_cpu(self, queries, k, ef):
+        out = self.index.search_cpu(queries, k=k, ef=ef)
+        self.steps.append((k, ef, out[:2]))
+        return out
+
+
+def phase7_range(dev, launches, p2, smi) -> dict:
+    """(a) epsilon_search on phase 2's index (N=100k clustered, d=128,
+    M=16, efC=200, bf16 tier) over its first 1,024 queries, epsilon the
+    median exact 100th-nearest squared distance, min_candidates=1,
+    max_candidates=256, ef=0, through the device beam and the native CPU
+    engine."""
+    from hnsw_tpu_torch import BruteforceIndex, L2Space, epsilon_search
+
+    idx, q_all, _, _ = p2["serve"]
+    x, q = p2["data"][0], q_all[:NQ_TIERS]
+    oracle = BruteforceIndex(L2Space(DIM), device=dev)
+    oracle.add_items(x, np.arange(N))
+    gt_d, gt = oracle.search_knn(q, EPS_MAX)
+    del oracle
+    eps = float(np.median(gt_d[:, EPS_RANK - 1]))
+    # the exact within-epsilon set, capped at max_candidates
+    truth = [set(gt[i][gt_d[i] <= eps].tolist()) for i in range(len(q))]
+    n_true = sum(len(t) for t in truth)
+    out: dict = {"epsilon": eps, "true_points": n_true}
+    for engine in ("device", "cpu"):
+        ladder = LadderLog(idx)
+        (d, lab, valid), secs, counts = counted(
+            f"7a {engine}", launches, lambda: epsilon_search(
+                ladder, q, eps, min_candidates=1, max_candidates=EPS_MAX, ef=0,
+                engine=engine))
+        if d.shape != (len(q), EPS_MAX) or not valid[:, 0].all():
+            fail(f"(7a {engine}) malformed results")
+        if (valid[:, 1:] & ~(d[:, 1:] <= eps)).any():
+            fail(f"(7a {engine}) a valid point past rank 1 lies beyond epsilon")
+        if any(len(set(r[v].tolist())) != int(v.sum()) for r, v in zip(lab, valid)):
+            fail(f"(7a {engine}) a label appears twice in a row")
+        found = sum(len(set(lab[i][valid[i]].tolist()) & truth[i]) for i in range(len(q)))
+        # queries whose beam was saturated with in-range points at each step
+        sat = [int(np.all((sd[:, :k] <= eps) & (sl[:, :k] >= 0), axis=1).sum())
+               for k, _, (sd, sl) in ladder.steps]
+        out[engine] = {"recall": found / n_true, "seconds": secs, "steps": [s[0] for s in ladder.steps],
+                       "saturated": sat, "valid": int(valid.sum()), "launches": counts}
+    dv, cp = out["device"], out["cpu"]
+    need_launch("7a device", dv["launches"], "hop_dist_unified")
+    log(f"[phase7] (a) epsilon_search, N={N} clustered, {len(q)} queries, epsilon {eps:.4f} "
+        f"(median exact {EPS_RANK}th-nearest), max_candidates {EPS_MAX}: {n_true} points in "
+        f"range; device: beams {dv['steps']}, saturated {dv['saturated']} (queries that "
+        f"widened), recall {dv['recall']:.4f}, {dv['seconds']:.2f}s, hop launches "
+        f"{dv['launches']['hop_dist_unified']}; CPU engine: beams {cp['steps']}, saturated "
+        f"{cp['saturated']}, recall {cp['recall']:.4f}, {cp['seconds']:.2f}s ({smi})")
+    if dv["recall"] < cp["recall"] - 0.01:
+        fail(f"(7a) device recall {dv['recall']} more than 0.01 under the CPU engine's {cp['recall']}")
+    return out
+
+
+def doc_distance_error(q, x, dd, docs, beam, doc_of, bf16) -> float:
+    """Worst error, over the tolerance, of a returned document's distance
+    against the min over its vectors in the final beam (wherever each was
+    found) of their exact float64 distances, and of each such vector's beam
+    distance against its exact one. The tolerance is 1e-5 of the distance
+    plus 1e-6 of |q|^2 + |x|^2 (an f32 norm expansion's rounding). With
+    `bf16` a vector's exact distance is to its f32 row or to its bf16 row,
+    whichever the beam read (the bf16 tier's hops read bf16 rows)."""
+    import torch
+
+    beam_d, beam_l = beam
+    xb = torch.from_numpy(x).bfloat16().double().numpy() if bf16 else None
+    qsq = (q.astype(np.float64) ** 2).sum(-1)
+    worst = 0.0
+    for i in range(len(q)):
+        ok = (beam_l[i] >= 0) & np.isfinite(beam_d[i])
+        lab_i, bd = beam_l[i][ok], beam_d[i][ok].astype(np.float64)
+        doc_i = doc_of[lab_i]
+        for dist, doc in zip(dd[i].tolist(), docs[i].tolist()):
+            v = lab_i[doc_i == doc]
+            b = bd[doc_i == doc]
+            ref = ((q[i].astype(np.float64) - x[v].astype(np.float64)) ** 2).sum(-1)
+            if bf16:
+                hb = ((q[i].astype(np.float64) - xb[v]) ** 2).sum(-1)
+                ref = np.where(np.abs(b - ref) <= np.abs(b - hb), ref, hb)
+            tol = 1e-5 * ref + 1e-6 * (qsq[i] + (x[v].astype(np.float64) ** 2).sum(-1))
+            j = int(np.argmin(ref))
+            worst = max(worst, float((np.abs(b - ref) / tol).max()),
+                        abs(dist - ref[j]) / tol[j])
+    return worst
+
+
+def phase7_docs(dev, launches, smi) -> dict:
+    """(b) MultiVectorIndex on the card: 3,125 documents of 32 vectors
+    (N=100k, d=128, late-interaction token embeddings' shape), built through
+    add_document (the threaded host build), 1,024 queries near a random
+    document's vector, k_docs=10, oversample=4, ef=200, through the device
+    beam and the native CPU engine; held to the exact per-document min."""
+    from hnsw_tpu_torch import BruteforceIndex, L2Space, MultiVectorIndex
+
+    rng = np.random.default_rng(SEED + 7)
+    centres = make_dataset(N_DOC, DIM, rng)
+    x = (np.repeat(centres, PER_DOC, axis=0)
+         + DOC_SPREAD * rng.normal(size=(N_DOC * PER_DOC, DIM))).astype(np.float32)
+    q = x[rng.integers(0, len(x), NQ_TIERS)] + 0.05 * rng.normal(
+        size=(NQ_TIERS, DIM)).astype(np.float32)
+    doc_of = np.repeat(np.arange(N_DOC), PER_DOC)
+
+    t0 = time.time()
+    mv = MultiVectorIndex("l2", dim=DIM, m=M, ef_construction=EF_C, device=dev)
+    for doc in range(N_DOC):
+        mv.add_document(doc, x[doc * PER_DOC:(doc + 1) * PER_DOC])
+    build_s = time.time() - t0
+    if mv.num_docs != N_DOC or mv.index.num_elements != len(x):
+        fail(f"(7b) {mv.num_docs} documents, {mv.index.num_elements} vectors")
+
+    # the exact top documents: the first K_DOCS distinct documents of the
+    # exact top K_DOCS * PER_DOC vectors (which hold at least K_DOCS)
+    oracle = BruteforceIndex(L2Space(DIM), device=dev)
+    oracle.add_items(x, np.arange(len(x)))
+    _, gt = oracle.search_knn(q, K_DOCS * PER_DOC)
+    del oracle
+    true_docs = [list(dict.fromkeys(doc_of[r].tolist()))[:K_DOCS] for r in gt]
+
+    index = mv.index
+    mv.index.search(q[:16], k=K, ef=EF_DOCS)  # the first (full) device sync
+    out: dict = {"build_s": build_s}
+    for engine in ("device", "cpu"):
+        mv.index = LadderLog(index)
+        (dd, docs), secs, counts = counted(
+            f"7b {engine}", launches, lambda: mv.search(
+                q, k_docs=K_DOCS, ef=EF_DOCS, oversample=OVERSAMPLE, engine=engine))
+        steps = mv.index.steps
+        mv.index = index
+        if docs.shape != (len(q), K_DOCS) or (docs < 0).any() or any(
+                len(set(r)) != K_DOCS for r in docs.tolist()):
+            fail(f"(7b {engine}) a query did not get {K_DOCS} distinct documents")
+        err = doc_distance_error(q, x, dd, docs, steps[-1][2], doc_of, bf16=engine == "device")
+        rec = float(np.mean([len(set(docs[i].tolist()) & set(true_docs[i])) / K_DOCS
+                             for i in range(len(q))]))
+        out[engine] = {"recall": rec, "seconds": secs, "qps": len(q) / secs,
+                       "steps": [s[0] for s in steps], "distance_error": err,
+                       "launches": counts}
+        if err > 1.0:
+            fail(f"(7b {engine}) a document's distance is not the min over its vectors' "
+                 f"exact distances ({err:.3f} of tolerance)")
+    dv, cp = out["device"], out["cpu"]
+    need_launch("7b device", dv["launches"], "hop_dist_unified")
+    log(f"[phase7] (b) MultiVectorIndex, {N_DOC} documents x {PER_DOC} vectors (N={len(x)}, "
+        f"d={DIM}, M={M}, efC={EF_C}), add_document build {build_s:.1f}s; {len(q)} queries, "
+        f"k_docs {K_DOCS}, oversample {OVERSAMPLE}, ef {EF_DOCS}: device beams {dv['steps']}, "
+        f"recall@10 {dv['recall']:.4f}, {dv['qps']:.0f} qps, hop launches "
+        f"{dv['launches']['hop_dist_unified']}, distance error {dv['distance_error']:.3f} of "
+        f"tolerance; CPU engine beams {cp['steps']}, recall@10 {cp['recall']:.4f}, "
+        f"{cp['qps']:.0f} qps, {cp['distance_error']:.3f} of tolerance ({smi})")
+    if dv["recall"] < cp["recall"] - 0.01:
+        fail(f"(7b) device recall {dv['recall']} more than 0.01 under the CPU engine's {cp['recall']}")
+    return out
+
+
+def single_searches(url, q) -> tuple[list, list, float]:
+    """POST one /search (k=K) per query, one at a time → (each query's
+    results, latencies in seconds, wall seconds). One at a time: the
+    optimized native mode is not safe under concurrent requests (a search
+    reads a vector through a pointer into the shared fetch cache after
+    releasing its lock, and another request's fetch may clear the cache
+    meanwhile: hnsw_tpu/native/query_main.cpp:269-274, 239, 351-353)."""
+    results, lat = [], []
+    t0 = time.time()
+    for row in q:
+        body = json.dumps({"query": row.tolist(), "k": K}).encode()
+        t = time.time()
+        results.append(http(url, body)["results"])
+        lat.append(time.time() - t)
+    return results, lat, time.time() - t0
+
+
+def phase7_native(dev, tmp, smi) -> dict:
+    """(c) The native frontends on phase 5's deployment (N=100k gaussian,
+    d=128, M=16, efC=200, its .adj): build_binary's storage_main, loaded
+    through /vec/put_batch, and query_main in normal and optimized mode at
+    --ef 200, 256 single /search (k=10) each, one at a time, against the
+    port's search_cpu on the same graph at ef=200."""
+    import urllib.request
+
+    from hnsw_tpu_torch import BruteforceIndex, HNSWIndex, L2Space
+    from hnsw_tpu_torch.native import build_binary
+
+    ckpt = os.path.join(tmp, "hnsw_index.npz")
+    t0 = time.time()
+    bins = {name: build_binary(name) for name in ("storage_main", "query_main")}
+    build_s = time.time() - t0
+    x, q = deployment_data()
+    q = q[:N_SINGLE]
+    _, lab_cpu, _ = HNSWIndex.load(ckpt, device=dev).search_cpu(q, k=K, ef=200)
+    oracle = BruteforceIndex(L2Space(DIM), device=dev)
+    oracle.add_items(x, np.arange(N))
+    _, gt = oracle.search_knn(q, K)
+    del oracle
+    rec_cpu = recall(lab_cpu, gt)
+    ref_sets = [set(r.tolist()) for r in lab_cpu]
+    procs: list = []
+    out: dict = {"build_s": build_s, "cpu_engine_recall": rec_cpu}
+
+    def start(name, args):
+        path = os.path.join(tmp, f"native_{name}.log")
+        with open(path, "w") as fh:
+            procs.append(subprocess.Popen(args, stdout=fh, stderr=subprocess.STDOUT))
+        return procs[-1], path
+
+    try:
+        s_port = free_port()
+        storage = f"http://127.0.0.1:{s_port}"
+        s_proc, s_log = start("storage", [bins["storage_main"], os.path.join(tmp, "native.log"),
+                                          str(s_port)])
+        wait_ready(f"{storage}/info", s_proc, s_log)
+        t0 = time.time()
+        for lo in range(0, N, 10_000):
+            rec = np.zeros(min(10_000, N - lo), dtype=[("id", "<u4"), ("vec", "<f4", (DIM,))])
+            rec["id"] = np.arange(lo, lo + len(rec))
+            rec["vec"] = x[lo:lo + len(rec)]
+            req = urllib.request.Request(
+                f"{storage}/vec/put_batch", data=struct.pack("<II", len(rec), DIM) + rec.tobytes(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                if r.read() != b"OK":
+                    fail("(7c) /vec/put_batch did not answer OK")
+        out["load_s"] = time.time() - t0
+        if http(f"{storage}/info")["count"] != N:
+            fail("(7c) the native storage does not hold N vectors")
+        xsq = (x.astype(np.float64) ** 2).sum(-1)
+        for mode, flag in (("normal", "0"), ("optimized", "1")):
+            port = free_port()
+            url = f"http://127.0.0.1:{port}"
+            t0 = time.time()
+            proc, path = start(mode, [bins["query_main"], "--graph", ckpt + ".adj", "--storage",
+                                      storage, "--port", str(port), "--dim", str(DIM), "--ef",
+                                      "200", "--optimized", flag])
+            info = wait_ready(f"{url}/info", proc, path)
+            start_s = time.time() - t0
+            if (info["nodes"], info["dim"], info["ef"], info["mode"]) != (N, DIM, 200, mode):
+                fail(f"(7c {mode}) /info {info}")
+            results, lat, secs = single_searches(f"{url}/search", q)
+            ids = np.full((len(q), K), -1, dtype=np.int64)
+            worst = 0.0
+            for i, res in enumerate(results):
+                got = np.array([r["id"] for r in res], dtype=np.int64)
+                dist = np.array([r["distance"] for r in res], dtype=np.float64)
+                if len(got) != K or (np.diff(dist) < 0).any():
+                    fail(f"(7c {mode}) query {i}: {len(got)} results, not ascending")
+                ids[i] = got
+                exact = ((q[i].astype(np.float64) - x[got].astype(np.float64)) ** 2).sum(-1)
+                worst = max(worst, float((np.abs(dist - exact) / (
+                    1e-5 * exact + 1e-6 * (xsq[got] + float(q[i].astype(np.float64) @ q[i])))).max()))
+            same = sum(set(ids[i].tolist()) == ref_sets[i] for i in range(len(q)))
+            rss = http(f"{url}/mem")["rss_kb"]
+            p50 = float(np.median(lat)) * 1e3
+            out[mode] = {"same_as_search_cpu": same, "recall": recall(ids, gt), "p50_ms": p50,
+                         "p99_ms": float(np.percentile(lat, 99)) * 1e3, "rss_kb": rss,
+                         "start_s": start_s, "distance_error": worst, "qps": len(q) / secs}
+            log(f"[phase7] (c) native query_main, {mode} mode, --ef 200: start-up {start_s:.2f}s, "
+                f"{len(q)} single /search one at a time, {len(q) / secs:.0f} qps: "
+                f"{same} of {len(q)} return search_cpu's ids, recall@10 "
+                f"{out[mode]['recall']:.4f} (search_cpu {rec_cpu:.4f}), distances "
+                f"{worst:.3f} of tolerance, p50 {p50:.2f} ms p99 {out[mode]['p99_ms']:.2f} ms, "
+                f"RSS {rss} kB ({smi})")
+            if worst > 1.0:
+                fail(f"(7c {mode}) returned distances differ from the exact ones")
+            proc.terminate()
+            proc.wait(timeout=30)
+        out["storage_rss_kb"] = http(f"{storage}/mem")["rss_kb"]
+        log(f"[phase7] (c) build_binary {build_s:.1f}s, native storage loaded by /vec/put_batch "
+            f"in {out['load_s']:.2f}s, RSS {out['storage_rss_kb']} kB ({smi})")
+    finally:
+        stop_all(procs)
+    # the normal mode reads the vectors from its own table: it must return
+    # search_cpu's ids on every query. The optimized mode's fetch-through
+    # cache (4,096 vectors, cleared when a hop's fetch would overflow it,
+    # query_main.cpp:239) drops neighbors that were cached before a clear,
+    # so it is held to search_cpu's recall instead
+    if out["normal"]["same_as_search_cpu"] != len(q):
+        fail(f"(7c normal) {len(q) - out['normal']['same_as_search_cpu']} answers differ from "
+             f"search_cpu's ids")
+    if out["optimized"]["recall"] < rec_cpu - 0.01:
+        fail(f"(7c optimized) recall {out['optimized']['recall']} more than 0.01 under "
+             f"search_cpu's {rec_cpu}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1617,11 +1956,18 @@ def main() -> int:
     torch.cuda.empty_cache()  # phase 3's index is gone: phase 4 gets the card
     p4, big = phase4(dev, launches, p2)
     p6 = phase6(dev, launches, p2, big)
+    p7 = {"range": phase7_range(dev, launches, p2, smi), "documents": phase7_docs(dev, launches, smi)}
     del big, p2["serve"]  # the 1M and 100k indexes: phase 5 gets the card
     torch.cuda.empty_cache()
-    p5 = phase5(dev, launches)
+    tmp = tempfile.mkdtemp(prefix="hnsw_phase5_")  # phase 5's deployment, kept for 7 (c)
+    try:
+        p5 = phase5(dev, launches, tmp)
+        p7["native"] = phase7_native(dev, tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"], "tiers": p3,
                                 "bulk_build": p4, "deployment": p5, "interop": p6,
+                                "stop_conditions": p7,
                                 "seconds": time.time() - t_start, "device": smi}}))
     rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
         ("hop_dist_unified", "hop_bf16", "hop_ring.cuh", "pallas_gather.py:795"),

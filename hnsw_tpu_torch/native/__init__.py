@@ -1,11 +1,14 @@
-"""ctypes bindings for the native C++ graph builder and vector store.
+"""ctypes bindings for the native C++ graph builder and vector store, and
+the native service frontends.
 
 The port does not import the reference package (every module of it imports
 jax). It compiles the reference's unchanged sources
 ``hnsw_tpu/native/builder.cpp`` and ``hnsw_tpu/native/vecstore.cpp``, read
 by path, with the reference's flags (``g++ -O3 -march=native -std=c++20
 -shared -fPIC``) into ``hnsw_tpu_torch/_build/libbuilder.so`` and
-``libvecstore.so``, and binds the same C ABIs.
+``libvecstore.so``, and binds the same C ABIs. ``build_binary`` compiles
+the host-only HTTP frontends ``storage_main.cpp`` and ``query_main.cpp``
+the same way into executables ``_build/bin_<name>``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,25 @@ def _load(name: str, src: str, declare) -> ctypes.CDLL:
             declare(lib)
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+def build_binary(name: str) -> str:
+    """Compile the reference's ``hnsw_tpu/native/<name>.cpp`` (a service
+    frontend: ``storage_main`` or ``query_main``) into the executable
+    ``_build/bin_<name>`` if stale, and return its path. The sources
+    include ``httpkit.h`` and ``vecstore.cpp``, so a newer one of either
+    rebuilds too. Nothing is written under ``hnsw_tpu/``."""
+    src = os.path.join(_NATIVE_DIR, f"{name}.cpp")
+    deps = [src, os.path.join(_NATIVE_DIR, "httpkit.h"), VECSTORE_SRC]
+
+    def compile_to(tmp: str) -> None:
+        cmd = [
+            "g++", "-O3", "-march=native", "-std=c++20", "-pthread",
+            "-o", tmp, src,
+        ]
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+
+    return build_if_stale(os.path.join(BUILD_DIR, f"bin_{name}"), deps, compile_to)
 
 
 def load_builder_lib() -> ctypes.CDLL:
