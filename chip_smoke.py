@@ -63,6 +63,15 @@ Phase 7  the stop-condition searches and the native frontends: (a)
          hnsw_tpu_torch.native.build_binary, normal and optimized mode,
          256 single /search each against the port's search_cpu. Row 1's
          launches are read around (a) and (b).
+Phase 8  the sharded index in one process (run after phase 7 (b), before
+         phase 2's index is freed): ShardedHNSWIndex over phase 2's N=100k
+         in 8 shards, one HNSWIndex each, all on the card, built by `build`;
+         phase 2's 1,024 queries: (a) the default descent at ef=200, held to
+         phase 2 (b)'s recall, with each returned distance its label's
+         exact one; (b) the speed mode; (c) delete-marks and unmarks, and a
+         shared filter of even labels; (d) every shard on the int8 rung with
+         the shard-local rescore; (e) save() and load(), held to (a)'s
+         answers. Rows 1, 2 and 3 are launched.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -803,7 +812,8 @@ def phase2(dev, launches) -> dict:
         fail("(c) distances disagree with the oracle's")
     return {"recall": {"a": rec_a, "b": rec_b, "c": rec_c},
             "qps": {"a": qps_a, "b": qps_b, "c": qps_c},
-            "data": (x, q[:1024], gt[:1024]),  # for phase 4 (g)
+            "data": (x, q[:1024], gt[:1024]),  # for phases 4 (g), 7 (a) and 8
+            "gt_d": gt_d[:1024],  # for phase 8 (d)
             "serve": (idx, q, gt, pc)}  # for phase 6
 
 
@@ -1961,6 +1971,178 @@ def phase7_native(dev, tmp, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the sharded index in one process.
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 8
+
+
+def phase8(dev, launches, p2, smi) -> dict:
+    """ShardedHNSWIndex at phase 2's operating point: phase 2's N=100k
+    clustered vectors in 8 shards (d=128, M=16, efC=200, k=10) on the card,
+    built by `build` (threaded, as users build), phase 2's 1,024 queries:
+    (a) the default descent at ef=200, held to phase 2 (b)'s single index;
+    (b) the speed mode; (c) deletes, and a shared filter of even labels,
+    which leaves four shards nothing eligible; (d) every shard on the int8
+    rung with the shard-local rescore (rows 3 and 2); (e) save() and load()
+    through a checkpoint set."""
+    import torch
+
+    from hnsw_tpu_torch import BruteforceIndex, L2Space
+    from hnsw_tpu_torch.ops.gather_kernels import tier_bytes
+    from hnsw_tpu_torch.parallel.sharding import ShardedHNSWIndex
+
+    x, q, gt = p2["data"]
+    gt_d = p2["gt_d"]
+    out: dict = {}
+
+    def new_index():
+        return ShardedHNSWIndex("l2", DIM, num_shards=N_SHARDS, m=M, ef_construction=EF_C,
+                                device=dev)
+
+    def tiers_of(name, idx, tier) -> list:
+        """(tier, n_pad) of every shard, after a sync; fails unless all
+        serve `tier`."""
+        tiers = [(st.tier, st.graph.n_pad) for st in (s._sync_device() for s in idx._shards)]
+        if any(t != tier for t, _ in tiers):
+            fail(f"({name}) shards serve {[t for t, _ in tiers]}, expected {tier} on every one")
+        return tiers
+
+    t0 = time.time()
+    idx = new_index()
+    idx.build(x)
+    out["build_s"] = time.time() - t0
+    if idx.num_elements != N:
+        fail(f"(8) the index holds {idx.num_elements} vectors")
+    t0 = time.time()
+    tiers = tiers_of("8a", idx, "unified")
+    torch.cuda.synchronize()
+    out["sync_s"], out["n_pad"] = time.time() - t0, [n for _, n in tiers]
+    log(f"[phase8] ShardedHNSWIndex, N={N} in {N_SHARDS} shards (d={DIM}, M={M}, "
+        f"efC={EF_C}), threaded build {out['build_s']:.1f}s, device sync "
+        f"{out['sync_s']:.1f}s; per shard tier/n_pad: "
+        + ", ".join(f"{t}/{n}" for t, n in tiers) + f" ({smi})")
+
+    # (a) the default descent at ef=200
+    d_a, lab_a, qps_a, c_a = run_mode(idx, "8a", q, 2, launches, k=K, ef=200)
+    need_launch("8a", c_a, "hop_dist_unified")
+    rec_a = recall(lab_a, gt)
+    worst = read_distances(q, x, lab_a, d_a, bf16=True)[2]
+    residues = len(set((lab_a[:, 0] % N_SHARDS).tolist()))
+    out["a"] = {"recall": rec_a, "qps": qps_a, "launches": c_a, "distance_error": worst,
+                "top1_residues": residues}
+    log(f"[phase8] (a) default descent ef=200, {len(q)} queries: recall@10 {rec_a:.4f} "
+        f"(single index, phase 2 (b): {p2['recall']['b']:.4f}), {qps_a:.0f} qps, hop "
+        f"launches {c_a['hop_dist_unified']}, distances {worst:.3f} of tolerance, top-1 "
+        f"labels on {residues} residues mod {N_SHARDS} ({smi})")
+    if rec_a < max(p2["recall"]["b"] - 0.01, 0.95):
+        fail(f"(8a) recall {rec_a} under 0.95 or more than 0.01 under the single index's "
+             f"{p2['recall']['b']}")
+    if (np.diff(d_a, axis=1) < 0).any() or any(len(set(r)) != K for r in lab_a.tolist()):
+        fail("(8a) rows not ascending, or a label twice in a row")
+    if worst > 1.0:
+        fail(f"(8a) returned distances differ from the exact ones ({worst:.3f} of tolerance)")
+    if residues != N_SHARDS:
+        fail(f"(8a) the top-1 labels span {residues} residues mod {N_SHARDS}")
+
+    # (b) the speed mode
+    _, lab_b, qps_b, c_b = run_mode(idx, "8b", q, 2, launches, k=K, ef=160, expand=2,
+                                    stop_frontier=1.15, max_iters=14, entry_seeds=4)
+    need_launch("8b", c_b, "hop_dist_unified")
+    rec_b = recall(lab_b, gt)
+    out["b"] = {"recall": rec_b, "qps": qps_b, "launches": c_b}
+    log(f"[phase8] (b) speed mode (ef 160, expand 2, frontier 1.15, max_iters 14, 4 seeds): "
+        f"recall@10 {rec_b:.4f}, {qps_b:.0f} qps, hop launches {c_b['hop_dist_unified']} ({smi})")
+    if rec_b < 0.95:
+        fail(f"(8b) recall {rec_b} < 0.95")
+
+    # (c) deletes, then a shared filter of even labels
+    victims = np.unique(lab_a[:64, 0])
+    for v in victims:
+        idx.mark_deleted(int(v))
+    _, lab_del, _, c_del = run_mode(idx, "8c deleted", q, 1, launches, k=K, ef=200)
+    back = int(np.isin(lab_del, victims).sum())
+    for v in victims:
+        idx.unmark_deleted(int(v))
+    _, lab_un, _, c_un = run_mode(idx, "8c unmarked", q, 1, launches, k=K, ef=200)
+    same = int((lab_un == lab_a).all(axis=1).sum())
+    even = np.arange(N) % 2 == 0
+    _, lab_f, qps_f, c_f = run_mode(idx, "8c filter", q, 1, launches, k=K, ef=200,
+                                    filter_labels=even)
+    oracle = BruteforceIndex(L2Space(DIM), device=dev)
+    oracle.add_items(x[even], np.flatnonzero(even))
+    _, gt_even = oracle.search_knn(q, K)
+    del oracle
+    rec_f = recall(lab_f, gt_even)
+    out["c"] = {"victims": len(victims), "victims_returned": back, "unmarked_same": same,
+                "filter_recall": rec_f, "filter_qps": qps_f,
+                "launches": {f: c_del[f] + c_un[f] + c_f[f] for f in launches}}
+    log(f"[phase8] (c) {len(victims)} top-1 labels of the first 64 queries delete-marked: "
+        f"{back} come back; unmarked: {same} of {len(q)} queries return (a)'s labels; "
+        f"even-label filter (shards 1, 3, 5, 7 hold nothing eligible): recall@10 {rec_f:.4f} "
+        f"against the exact even-label oracle, {qps_f:.0f} qps ({smi})")
+    if back:
+        fail(f"(8c) {back} delete-marked labels returned")
+    if not (lab_un[:64] == lab_a[:64]).all():
+        fail("(8c) after unmark_deleted the first 64 queries do not return (a)'s labels")
+    if (lab_f < 0).any() or (lab_f % 2).any():
+        fail("(8c) the even-label filter returned an odd or missing label")
+    if rec_f < 0.95:
+        fail(f"(8c) filtered recall {rec_f} < 0.95")
+
+    # (d) every shard on the int8 rung: f32 storage, auto rescore of 40
+    t0 = time.time()
+    for shard in idx._shards:
+        st = shard._sync_device()
+        need = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], DIM)
+        del st
+        shard.rebuild_device_tables((need["unified8"] + need["unified"]) // 2)
+    tiers_of("8d", idx, "unified8")
+    torch.cuda.synchronize()
+    sync_d = time.time() - t0
+    d_d, lab_d, qps_d, c_d = run_mode(idx, "8d", q, 2, launches, k=K, ef=200)
+    need_launch("8d", c_d, "hop_dist_unified8", "gather_dist_rows")
+    rec_d = recall(lab_d, gt)
+    worst_d = oracle_error(d_d, lab_d, q, x, gt, gt_d)
+    out["d"] = {"recall": rec_d, "qps": qps_d, "launches": c_d, "oracle_error": worst_d,
+                "sync_s": sync_d}
+    log(f"[phase8] (d) int8 on every shard (sync {sync_d:.1f}s), auto rescore 40: recall@10 "
+        f"{rec_d:.4f}, {qps_d:.0f} qps, launches "
+        + ", ".join(f"{k} {v}" for k, v in c_d.items() if v)
+        + f", distances vs oracle {worst_d:.3f} of tolerance ({smi})")
+    if rec_d < rec_a - 0.01:
+        fail(f"(8d) recall {rec_d} more than 0.01 under (a)'s {rec_a}")
+    if worst_d > 1.0:
+        fail("(8d) distances disagree with the oracle's")
+
+    # (e) save() and load() into a fresh index on the card
+    with tempfile.TemporaryDirectory(prefix="hnsw_phase8_") as tmp:
+        prefix = os.path.join(tmp, "sharded")
+        t0 = time.time()
+        idx.save(prefix)
+        save_s = time.time() - t0
+        del idx
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        idx = new_index()
+        idx.load(prefix)
+        load_s = time.time() - t0
+    tiers_of("8e", idx, "unified")
+    d_e, lab_e, qps_e, c_e = run_mode(idx, "8e", q, 1, launches, k=K, ef=200)
+    same_e = int((lab_e == lab_a).all(axis=1).sum())
+    out["e"] = {"save_s": save_s, "load_s": load_s, "same_labels": same_e, "qps": qps_e,
+                "max_rel_diff": float(np.max(np.abs(d_e - d_a) / d_a))}
+    log(f"[phase8] (e) save {save_s:.1f}s, load {load_s:.1f}s: {same_e} of {len(q)} queries "
+        f"return (a)'s labels, distances within {out['e']['max_rel_diff']:.2e} relative "
+        f"({smi})")
+    if same_e != len(q) or not np.allclose(d_e, d_a, rtol=1e-6, atol=0):
+        fail("(8e) the loaded index does not answer as the saved one")
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1986,6 +2168,7 @@ def main() -> int:
     p4, big = phase4(dev, launches, p2)
     p6 = phase6(dev, launches, p2, big)
     p7 = {"range": phase7_range(dev, launches, p2, smi), "documents": phase7_docs(dev, launches, smi)}
+    p8 = phase8(dev, launches, p2, smi)
     del big, p2["serve"]  # the 1M and 100k indexes: phase 5 gets the card
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="hnsw_phase5_")  # phase 5's deployment, kept for 7 (c)
@@ -1996,7 +2179,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"], "tiers": p3,
                                 "bulk_build": p4, "deployment": p5, "interop": p6,
-                                "stop_conditions": p7,
+                                "stop_conditions": p7, "sharded": p8,
                                 "seconds": time.time() - t_start, "device": smi}}))
     rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
         ("hop_dist_unified", "hop_bf16", "hop_ring.cuh", "pallas_gather.py:795"),

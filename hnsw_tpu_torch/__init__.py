@@ -16,6 +16,8 @@ The JAX package ``hnsw_tpu`` stays the reference; this package imports
 - ``models``: the exact bruteforce oracle, HNSWIndex (with its row-delta
   device sync), the device-wave ``bulk_build``, and the stop-condition
   searches ``epsilon_search`` and ``MultiVectorIndex``;
+- ``parallel``: the sharded index in one process
+  (``parallel.sharding.ShardedHNSWIndex``, one HNSWIndex per shard);
 - ``service``: the deployment's builder CLI, storage service and query
   service (``python -m hnsw_tpu_torch.service.<name>``);
 - ``convert``: numpy-only conversion of the JAX package's state.

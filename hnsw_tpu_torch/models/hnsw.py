@@ -860,14 +860,16 @@ class HNSWIndex:
         return cls._from_parts(*load_checkpoint(path), device=device)
 
     @classmethod
-    def _from_parts(cls, g, vectors, deleted, meta, device="cuda") -> "HNSWIndex":
+    def _from_parts(cls, g, vectors, deleted, meta, device="cuda",
+                    inline_neighbors=None) -> "HNSWIndex":
         """A live index from (graph, internal vectors, deleted mask, meta),
         the shared tail of every loader."""
         self = cls.__new__(cls)
         self._init_common(
             get_space(meta["space"], meta["dim"]), meta["m"],
             meta["ef_construction"],
-            bool(meta.get("allow_replace_deleted", False)), 1 / 16, None, device,
+            bool(meta.get("allow_replace_deleted", False)), 1 / 16,
+            inline_neighbors, device,
         )
         self._builder = NativeHNSWBuilder.from_graph(
             g, vectors, deleted, space=self.space.name,
