@@ -66,12 +66,21 @@ Phase 7  the stop-condition searches and the native frontends: (a)
 Phase 8  the sharded index in one process (run after phase 7 (b), before
          phase 2's index is freed): ShardedHNSWIndex over phase 2's N=100k
          in 8 shards, one HNSWIndex each, all on the card, built by `build`;
-         phase 2's 1,024 queries: (a) the default descent at ef=200, held to
-         phase 2 (b)'s recall, with each returned distance its label's
-         exact one; (b) the speed mode; (c) delete-marks and unmarks, and a
+         phase 2's 1,024 queries: (a) the default descent at ef=200 on the
+         default ladder's one rung, held to phase 2 (b)'s recall, with each
+         returned distance its label's exact one and each shard's orphans
+         logged; (b) the speed mode; (c) delete-marks and unmarks, and a
          shared filter of even labels; (d) every shard on the int8 rung with
          the shard-local rescore; (e) save() and load(), held to (a)'s
-         answers. Rows 1, 2 and 3 are launched.
+         answers; (f) add_items of 1,000 new vectors and 64 updates as row
+         deltas, held to a rebuild; (g) int4 over bf16 storage and the split
+         rung; (h) the trim configuration, whose add_items syncs in full;
+         (i) epsilon_search and a MultiVectorIndex built by add_document
+         over shards. Every row is launched.
+Phase 9  phase 8's saved set under torch.distributed: 2 gloo ranks at dp=1,
+         then 4 at dp=2 (the batch split in two), each its own process on
+         the one card; every rank returns phase 8 (e)'s answers bit for bit
+         at ef=200 (and in the speed mode at dp=1).
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero on any failure.
@@ -1721,7 +1730,7 @@ def phase7_range(dev, launches, p2, smi) -> dict:
             fail(f"(7a {engine}) recall {out[engine]['recall']} under {RANGE_RECALL_MIN}")
     if dv["recall"] < cp["recall"] - 0.01:
         fail(f"(7a) device recall {dv['recall']} more than 0.01 under the CPU engine's {cp['recall']}")
-    return out
+    return out, (eps, truth)  # the exact in-range sets, for phase 8 (i)
 
 
 def read_distances(q, x, lab, d, bf16) -> tuple[np.ndarray, np.ndarray, float]:
@@ -1836,7 +1845,7 @@ def phase7_docs(dev, launches, smi) -> dict:
             fail(f"(7b {engine}) recall@10 {out[engine]['recall']} under {DOC_RECALL_MIN}")
     if dv["recall"] < cp["recall"] - 0.01:
         fail(f"(7b) device recall {dv['recall']} more than 0.01 under the CPU engine's {cp['recall']}")
-    return out
+    return out, (x, q, doc_of, true_docs)  # for phase 8 (i)
 
 
 def single_searches(url, q) -> tuple[list, list, float]:
@@ -1976,38 +1985,77 @@ def phase7_native(dev, tmp, smi) -> dict:
 # ---------------------------------------------------------------------------
 
 N_SHARDS = 8
+N_ADD, N_UPD = 1000, 64  # phase 8 (f)'s inserts and in-place updates
+# phase 2 (a)'s speed mode, on the sharded index (phases 8 (b), (e) and 9)
+SHARD_SPEED = dict(k=K, ef=160, expand=2, stop_frontier=1.15, max_iters=14, entry_seeds=4)
 
 
-def phase8(dev, launches, p2, smi) -> dict:
+def orphans(g) -> np.ndarray:
+    """Labels of a host graph's nodes that no level-0 edge points to."""
+    hit = np.zeros(g.num_nodes, dtype=bool)
+    hit[g.level0[g.level0 >= 0]] = True
+    return g.labels[~hit]
+
+
+def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     """ShardedHNSWIndex at phase 2's operating point: phase 2's N=100k
     clustered vectors in 8 shards (d=128, M=16, efC=200, k=10) on the card,
     built by `build` (threaded, as users build), phase 2's 1,024 queries:
-    (a) the default descent at ef=200, held to phase 2 (b)'s single index;
-    (b) the speed mode; (c) deletes, and a shared filter of even labels,
-    which leaves four shards nothing eligible; (d) every shard on the int8
-    rung with the shard-local rescore (rows 3 and 2); (e) save() and load()
-    through a checkpoint set."""
+    (a) the default descent at ef=200, held to phase 2 (b)'s single index,
+    with each shard's orphans (nodes no level-0 edge reaches) logged beside
+    the single index's; (b) the speed mode; (c) deletes, and a shared filter
+    of even labels, which leaves four shards nothing eligible; (d) every
+    shard on the int8 rung through the index's ladder, with the shard-local
+    rescore (rows 3 and 2); (e) save() into `setdir` (phase 9 loads it) and
+    load(), held to (a), whose answers at ef=200 and in the speed mode are
+    phase 9's reference; (f) add_items of 1,000 new vectors and 64 in-place
+    updates, synced as row deltas and held to a rebuild at the same rung;
+    (g) the ladder at budgets between rungs: int4 over bf16 storage (rows 4
+    and 5) and the split rung (row 6); (h) the trim configuration (bf16
+    storage, int8 without side tables, no upper tables: rows 3 and 5),
+    whose add_items syncs in full; (i) epsilon_search against phase 7 (a)'s
+    exact in-range sets, and a MultiVectorIndex over a sharded index of
+    phase 7 (b)'s documents, built by add_document."""
     import torch
 
-    from hnsw_tpu_torch import BruteforceIndex, L2Space
+    from hnsw_tpu_torch import BruteforceIndex, L2Space, MultiVectorIndex, epsilon_search
+    from hnsw_tpu_torch.core.graph import round_up
     from hnsw_tpu_torch.ops.gather_kernels import tier_bytes
     from hnsw_tpu_torch.parallel.sharding import ShardedHNSWIndex
 
     x, q, gt = p2["data"]
     gt_d = p2["gt_d"]
-    out: dict = {}
+    out: dict = {"step_s": {}}  # wall seconds of each step, build and sync in (a)
+    prefix = os.path.join(setdir, "sharded")
+    last = time.time()
 
-    def new_index():
-        return ShardedHNSWIndex("l2", DIM, num_shards=N_SHARDS, m=M, ef_construction=EF_C,
-                                device=dev)
+    def step(name):
+        nonlocal last
+        out["step_s"][name], last = time.time() - last, time.time()
+
+    def new_index(bf16=False):
+        idx = ShardedHNSWIndex("l2", DIM, num_shards=N_SHARDS, m=M, ef_construction=EF_C,
+                               device=dev)
+        if bf16:
+            idx.space = L2Space(DIM, storage_dtype=torch.bfloat16)
+        return idx
 
     def tiers_of(name, idx, tier) -> list:
-        """(tier, n_pad) of every shard, after a sync; fails unless all
-        serve `tier`."""
-        tiers = [(st.tier, st.graph.n_pad) for st in (s._sync_device() for s in idx._shards)]
-        if any(t != tier for t, _ in tiers):
-            fail(f"({name}) shards serve {[t for t, _ in tiers]}, expected {tier} on every one")
+        """(tier, n_pad) of every shard after the index's sync; fails unless
+        the index and every shard serve `tier`."""
+        idx._sync()
+        tiers = [(s._device.tier, s._device.graph.n_pad) for s in idx._shards]
+        if idx._tier != tier or any(t != tier for t, _ in tiers):
+            fail(f"({name}) the index serves {idx._tier}, its shards {[t for t, _ in tiers]}, "
+                 f"expected {tier} on every one")
         return tiers
+
+    def between(idx, lo, hi) -> int:
+        """A per-shard budget between two rungs' bytes at the largest shard's
+        n_pad."""
+        n = max(len(labs) for labs in idx._shard_labels)
+        need = tier_bytes(round_up(n + 1 + n // 16, 128), 2 * M, DIM)
+        return (need[lo] + need[hi]) // 2
 
     t0 = time.time()
     idx = new_index()
@@ -2019,13 +2067,24 @@ def phase8(dev, launches, p2, smi) -> dict:
     tiers = tiers_of("8a", idx, "unified")
     torch.cuda.synchronize()
     out["sync_s"], out["n_pad"] = time.time() - t0, [n for _, n in tiers]
+    # orphans: nodes no level-0 edge reaches, which a beam finds only as its
+    # entry; the exact top-10 slots they hold bound the recall they can cost
+    orph = [orphans(s.graph) for s in idx._shards]
+    orph_single = orphans(p2["serve"][0].graph)
+    out["orphans"] = {"per_shard": [len(o) for o in orph], "single": len(orph_single),
+                      "gt_slots": int(np.isin(gt, np.concatenate(orph)).sum()),
+                      "gt_slots_single": int(np.isin(gt, orph_single).sum())}
     log(f"[phase8] ShardedHNSWIndex, N={N} in {N_SHARDS} shards (d={DIM}, M={M}, "
         f"efC={EF_C}), threaded build {out['build_s']:.1f}s, device sync "
-        f"{out['sync_s']:.1f}s; per shard tier/n_pad: "
-        + ", ".join(f"{t}/{n}" for t, n in tiers) + f" ({smi})")
+        f"{out['sync_s']:.1f}s; the default ladder's one rung, per shard tier/n_pad: "
+        + ", ".join(f"{t}/{n}" for t, n in tiers) + f"; nodes no level-0 edge reaches: "
+        f"{out['orphans']['per_shard']} per shard ({sum(out['orphans']['per_shard'])} of {N}; "
+        f"phase 2's single index {len(orph_single)}), holding {out['orphans']['gt_slots']} of "
+        f"the {gt.size} exact top-10 slots (single index {out['orphans']['gt_slots_single']}) "
+        f"({smi})")
 
     # (a) the default descent at ef=200
-    d_a, lab_a, qps_a, c_a = run_mode(idx, "8a", q, 2, launches, k=K, ef=200)
+    d_a, lab_a, qps_a, c_a = run_mode(idx, "8a", q, 1, launches, k=K, ef=200)
     need_launch("8a", c_a, "hop_dist_unified")
     rec_a = recall(lab_a, gt)
     worst = read_distances(q, x, lab_a, d_a, bf16=True)[2]
@@ -2046,9 +2105,9 @@ def phase8(dev, launches, p2, smi) -> dict:
     if residues != N_SHARDS:
         fail(f"(8a) the top-1 labels span {residues} residues mod {N_SHARDS}")
 
+    step("a")
     # (b) the speed mode
-    _, lab_b, qps_b, c_b = run_mode(idx, "8b", q, 2, launches, k=K, ef=160, expand=2,
-                                    stop_frontier=1.15, max_iters=14, entry_seeds=4)
+    _, lab_b, qps_b, c_b = run_mode(idx, "8b", q, 2, launches, **SHARD_SPEED)
     need_launch("8b", c_b, "hop_dist_unified")
     rec_b = recall(lab_b, gt)
     out["b"] = {"recall": rec_b, "qps": qps_b, "launches": c_b}
@@ -2057,6 +2116,7 @@ def phase8(dev, launches, p2, smi) -> dict:
     if rec_b < 0.95:
         fail(f"(8b) recall {rec_b} < 0.95")
 
+    step("b")
     # (c) deletes, then a shared filter of even labels
     victims = np.unique(lab_a[:64, 0])
     for v in victims:
@@ -2091,17 +2151,14 @@ def phase8(dev, launches, p2, smi) -> dict:
     if rec_f < 0.95:
         fail(f"(8c) filtered recall {rec_f} < 0.95")
 
+    step("c")
     # (d) every shard on the int8 rung: f32 storage, auto rescore of 40
     t0 = time.time()
-    for shard in idx._shards:
-        st = shard._sync_device()
-        need = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], DIM)
-        del st
-        shard.rebuild_device_tables((need["unified8"] + need["unified"]) // 2)
+    idx.rebuild_device_tables(between(idx, "unified8", "unified"))
     tiers_of("8d", idx, "unified8")
     torch.cuda.synchronize()
     sync_d = time.time() - t0
-    d_d, lab_d, qps_d, c_d = run_mode(idx, "8d", q, 2, launches, k=K, ef=200)
+    d_d, lab_d, qps_d, c_d = run_mode(idx, "8d", q, 1, launches, k=K, ef=200)
     need_launch("8d", c_d, "hop_dist_unified8", "gather_dist_rows")
     rec_d = recall(lab_d, gt)
     worst_d = oracle_error(d_d, lab_d, q, x, gt, gt_d)
@@ -2116,30 +2173,334 @@ def phase8(dev, launches, p2, smi) -> dict:
     if worst_d > 1.0:
         fail("(8d) distances disagree with the oracle's")
 
+    step("d")
     # (e) save() and load() into a fresh index on the card
-    with tempfile.TemporaryDirectory(prefix="hnsw_phase8_") as tmp:
-        prefix = os.path.join(tmp, "sharded")
-        t0 = time.time()
-        idx.save(prefix)
-        save_s = time.time() - t0
-        del idx
-        torch.cuda.empty_cache()
-        t0 = time.time()
-        idx = new_index()
-        idx.load(prefix)
-        load_s = time.time() - t0
+    t0 = time.time()
+    idx.save(prefix)
+    save_s = time.time() - t0
+    del idx
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    idx = new_index()
+    idx.load(prefix)
+    load_s = time.time() - t0
     tiers_of("8e", idx, "unified")
     d_e, lab_e, qps_e, c_e = run_mode(idx, "8e", q, 1, launches, k=K, ef=200)
+    d_es, lab_es, _, _ = run_mode(idx, "8e speed", q, 1, launches, **SHARD_SPEED)
     same_e = int((lab_e == lab_a).all(axis=1).sum())
     out["e"] = {"save_s": save_s, "load_s": load_s, "same_labels": same_e, "qps": qps_e,
                 "max_rel_diff": float(np.max(np.abs(d_e - d_a) / d_a))}
+    out["reference"] = {"default": (d_e, lab_e), "speed": (d_es, lab_es)}  # for phase 9
     log(f"[phase8] (e) save {save_s:.1f}s, load {load_s:.1f}s: {same_e} of {len(q)} queries "
         f"return (a)'s labels, distances within {out['e']['max_rel_diff']:.2e} relative "
         f"({smi})")
     if same_e != len(q) or not np.allclose(d_e, d_a, rtol=1e-6, atol=0):
         fail("(8e) the loaded index does not answer as the saved one")
+
+    step("e")
+    # (f) add_items: new vectors from the same generator (another seed) and
+    # in-place updates of existing labels, synced as row deltas
+    rng = np.random.default_rng(SEED + 8)
+    new = make_dataset(N_ADD + N_UPD, DIM, rng)
+    new_labels = np.concatenate([np.arange(N, N + N_ADD),
+                                 np.sort(rng.choice(N, N_UPD, replace=False))])
+    t0 = time.time()
+    idx.add_items(new[:N_ADD], new_labels[:N_ADD])
+    idx.add_items(new[N_ADD:], new_labels[N_ADD:])
+    add_s = time.time() - t0
+    (_, lab_self), sync_f, c_fs = counted("8f", launches, lambda: idx.search(new, k=1, ef=200))
+    mode_f = idx.last_sync_mode
+    hit_f = float(np.mean(lab_self[:, 0] == new_labels))
+    d_fd, lab_fd, _, _ = run_mode(idx, "8f delta", q, 1, launches, k=K, ef=200)
+    idx.rebuild_device_tables()
+    tiers_of("8f", idx, "unified")
+    d_fr, lab_fr, _, _ = run_mode(idx, "8f rebuilt", q, 1, launches, k=K, ef=200)
+    same_f = int((lab_fd == lab_fr).all(axis=1).sum())
+    rel_f = float(np.max(np.abs(d_fd - d_fr) / d_fr))
+    out["f"] = {"add_s": add_s, "sync_and_search_s": sync_f, "mode": mode_f, "self_hit": hit_f,
+                "same_as_rebuild": same_f, "max_rel_diff": rel_f, "launches": c_fs}
+    log(f"[phase8] (f) add_items of {N_ADD} new vectors and {N_UPD} in-place updates "
+        f"{add_s:.2f}s; sync {mode_f} + search of the {N_ADD + N_UPD} {sync_f:.2f}s: "
+        f"{hit_f:.4f} at rank 1; a rebuild at the same rung: {same_f} of {len(q)} queries "
+        f"return the delta state's labels, distances within {rel_f:.2e} relative ({smi})")
+    if mode_f != "delta":
+        fail(f"(8f) the inserts synced as {mode_f}, not as row deltas")
+    if hit_f < 0.99:
+        fail(f"(8f) only {hit_f} of the new and updated vectors found at rank 1")
+    if same_f != len(q) or rel_f > 1e-5:
+        fail("(8f) the delta state does not answer as a rebuild at the same rung")
     del idx
     torch.cuda.empty_cache()
+
+    step("f")
+    # (g) budgets between rungs: the split rung, and int4 over bf16 storage
+    idx = new_index()
+    idx.load(prefix)
+    idx.rebuild_device_tables(0)
+    tiers_of("8g split", idx, "split")
+    d_gs, lab_gs, qps_gs, c_gs = run_mode(idx, "8g split", q, 1, launches, k=K, ef=200)
+    need_launch("8g split", c_gs, "hop_dist_inline")
+    rec_gs = recall(lab_gs, gt)
+    worst_gs = read_distances(q, x, lab_gs, d_gs, bf16=True)[2]
+    del idx
+    torch.cuda.empty_cache()
+    idx = new_index(bf16=True)
+    idx.load(prefix)
+    idx.rebuild_device_tables(between(idx, "unified4", "unified8"))
+    tiers_of("8g int4", idx, "unified4")
+    if idx._shards[0]._device.vectors.dtype != torch.bfloat16:
+        fail("(8g int4) the vector table is not bf16")
+    d_g4, lab_g4, qps_g4, c_g4 = run_mode(idx, "8g int4", q, 1, launches, k=K, ef=200)
+    need_launch("8g int4", c_g4, "hop_dist_unified4", "gather_dist_bf16")
+    rec_g4 = recall(lab_g4, gt)
+    worst_g4 = read_distances(q, x, lab_g4, d_g4, bf16=True)[2]
+    out["g"] = {"split": {"recall": rec_gs, "qps": qps_gs, "launches": c_gs,
+                          "distance_error": worst_gs},
+                "int4_bf16": {"recall": rec_g4, "qps": qps_g4, "launches": c_g4,
+                              "distance_error": worst_g4}}
+    log(f"[phase8] (g) split on every shard: recall@10 {rec_gs:.4f} ((a) {rec_a:.4f}), "
+        f"{qps_gs:.0f} qps, row 6 launches {c_gs['hop_dist_inline']}, distances {worst_gs:.3f} "
+        f"of tolerance; int4 over bf16 storage on every shard, auto rescore 40: recall@10 "
+        f"{rec_g4:.4f}, {qps_g4:.0f} qps, rows 4 / 5 launches {c_g4['hop_dist_unified4']} / "
+        f"{c_g4['gather_dist_bf16']}, distances {worst_g4:.3f} of tolerance ({smi})")
+    if rec_gs < 0.95 or abs(rec_gs - rec_a) > 0.01:
+        fail(f"(8g split) recall {rec_gs} under 0.95 or not within 0.01 of (a)'s {rec_a}")
+    if rec_g4 < 0.90:
+        fail(f"(8g int4) recall {rec_g4} < 0.90")
+    if max(worst_gs, worst_g4) > 1.0:
+        fail("(8g) returned distances differ from the exact ones")
+
+    step("g")
+    # (h) the trim configuration on the bf16 index: int8 without its side
+    # tables, no upper tables; a mutation syncs in full
+    idx.upper_inline = False
+    idx.keep_delta_tables = False
+    idx.rebuild_device_tables(between(idx, "unified8", "unified"))
+    tiers_of("8h", idx, "unified8")
+    st = idx._shards[0]._device
+    if st.codes is not None or st.upper_tables is not None:
+        fail("(8h) the side tables or the upper tables were kept")
+    del st
+    d_h, lab_h, qps_h, c_h = run_mode(idx, "8h", q, 1, launches, k=K, ef=200)
+    need_launch("8h", c_h, "hop_dist_unified8", "gather_dist_bf16")
+    rec_h = recall(lab_h, gt)
+    worst_h = read_distances(q, x, lab_h, d_h, bf16=True)[2]
+    idx.add_items(new[:N_ADD], new_labels[:N_ADD])
+    (_, lab_hs), sync_h, _ = counted("8h add", launches,
+                                     lambda: idx.search(new[:N_ADD], k=1, ef=200))
+    mode_h = idx.last_sync_mode
+    hit_h = float(np.mean(lab_hs[:, 0] == new_labels[:N_ADD]))
+    d_h2, lab_h2, _, _ = run_mode(idx, "8h after", q, 1, launches, k=K, ef=200)
+    worst_h2 = read_distances(q, np.concatenate([x, new[:N_ADD]]), lab_h2, d_h2, bf16=True)[2]
+    out["h"] = {"recall": rec_h, "qps": qps_h, "launches": c_h, "distance_error": worst_h,
+                "mode": mode_h, "self_hit": hit_h, "sync_and_search_s": sync_h,
+                "distance_error_after": worst_h2}
+    log(f"[phase8] (h) trim (bf16 vectors, int8 without side tables, no upper tables): "
+        f"recall@10 {rec_h:.4f}, {qps_h:.0f} qps, rows 3 / 5 launches "
+        f"{c_h['hop_dist_unified8']} / {c_h['gather_dist_bf16']}; add_items of {N_ADD}: sync "
+        f"{mode_h} + search {sync_h:.2f}s, {hit_h:.4f} at rank 1; distances {worst_h:.3f} / "
+        f"{worst_h2:.3f} of tolerance before / after ({smi})")
+    if rec_h < rec_a - 0.02:
+        fail(f"(8h) recall {rec_h} more than 0.02 under (a)'s {rec_a}")
+    if mode_h != "full" or hit_h < 0.99:
+        fail(f"(8h) add_items synced as {mode_h}, {hit_h} found at rank 1")
+    if max(worst_h, worst_h2) > 1.0:
+        fail("(8h) returned distances differ from the exact ones")
+    del idx
+    torch.cuda.empty_cache()
+
+    step("h")
+    # (i) the stop-condition searches over the shards
+    eps, truth = ranged
+    qr = q[:len(truth)]  # phase 7 (a)'s queries
+    idx = new_index()
+    idx.load(prefix)
+    idx.search(q[:16], k=K, ef=200)  # the first (full) device sync
+    ladder = LadderLog(idx)
+    (d_r, lab_r, valid), secs_r, c_r = counted("8i range", launches, lambda: epsilon_search(
+        ladder, qr, eps, min_candidates=1, max_candidates=EPS_MAX, ef=0))
+    need_launch("8i range", c_r, "hop_dist_unified")
+    exact, tol, err_r = read_distances(qr, x, lab_r, d_r, bf16=True)
+    n_true = sum(len(t) for t in truth)
+    rec_r = sum(len(set(lab_r[i][valid[i]].tolist()) & truth[i]) for i in range(len(qr))) / n_true
+    beyond = int((valid[:, 1:] & ~(exact[:, 1:] <= eps + tol[:, 1:])).sum())
+    beams_r = [s[0] for s in ladder.steps]
+    del idx, ladder
+    torch.cuda.empty_cache()
+    step("i range")
+    xd, qd, doc_of, true_docs = docs
+    t0 = time.time()
+    mv = MultiVectorIndex("l2", DIM, index=new_index())
+    for doc in range(N_DOC):
+        mv.add_document(doc, xd[doc * PER_DOC:(doc + 1) * PER_DOC])
+    build_docs = time.time() - t0
+    if mv.num_docs != N_DOC or mv.index.num_elements != len(xd):
+        fail(f"(8i) {mv.num_docs} documents, {mv.index.num_elements} vectors")
+    index = mv.index
+    index.search(qd[:16], k=K, ef=EF_DOCS)  # the first (full) device sync
+    mv.index = LadderLog(index)
+    (dd, got_docs), secs_docs, c_docs = counted("8i docs", launches, lambda: mv.search(
+        qd, k_docs=K_DOCS, ef=EF_DOCS, oversample=OVERSAMPLE))
+    steps = mv.index.steps
+    mv.index = index
+    need_launch("8i docs", c_docs, "hop_dist_unified")
+    err_docs = doc_distance_error(qd, xd, dd, got_docs, steps[-1][2], doc_of, bf16=True)
+    rec_docs = float(np.mean([len(set(got_docs[i].tolist()) & set(true_docs[i])) / K_DOCS
+                              for i in range(len(qd))]))
+    out["i"] = {"range": {"recall": rec_r, "seconds": secs_r, "distance_error": err_r,
+                          "beyond_epsilon": beyond, "beams": beams_r, "launches": c_r},
+                "documents": {"recall": rec_docs, "seconds": secs_docs, "build_s": build_docs,
+                              "steps": [s[0] for s in steps], "distance_error": err_docs,
+                              "launches": c_docs}}
+    log(f"[phase8] (i) epsilon_search over the shards, epsilon {eps:.4f}: beams {beams_r}, "
+        f"in-range recall {rec_r:.4f} against phase 7 (a)'s exact sets, {secs_r:.2f}s, "
+        f"distances {err_r:.3f} "
+        f"of tolerance; MultiVectorIndex over a sharded index, {N_DOC} documents x {PER_DOC} "
+        f"vectors by add_document {build_docs:.1f}s: beams {[s[0] for s in steps]}, document "
+        f"recall@10 {rec_docs:.4f}, {len(qd) / secs_docs:.0f} qps, distances {err_docs:.3f} of "
+        f"tolerance ({smi})")
+    if rec_r < RANGE_RECALL_MIN or err_r > 1.0 or beyond:
+        fail(f"(8i range) recall {rec_r}, distances {err_r} of tolerance, {beyond} valid "
+             f"points past rank 1 beyond epsilon")
+    if rec_docs < DOC_RECALL_MIN or err_docs > 1.0:
+        fail(f"(8i documents) recall@10 {rec_docs}, distances {err_docs} of tolerance")
+    del mv, index
+    torch.cuda.empty_cache()
+    step("i documents")
+    log(f"[phase8] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["step_s"].items()) + f" ({smi})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the sharded index over torch.distributed ranks.
+# ---------------------------------------------------------------------------
+
+P9_RUNS = ((2, 1), (4, 2))  # (world size, dp)
+NQ_RANKS = 512  # phase 9's queries: the first of phase 2's 1,024 (a cut for time)
+
+
+def phase9_rank(rank, world, dp, init, prefix, qfile, out) -> None:
+    """One rank of phase 9, run as its own process: a gloo group, its shards
+    of phase 8's set on cuda:0, the queries of `qfile` at ef=200 and in the
+    speed mode (each after a warm-up, with the kernels' counts set to 0 just
+    before and read just after); writes its answers, counts and seconds to
+    `out`.{rank}.npz and .json."""
+    import torch
+    import torch.distributed as dist
+
+    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
+    from hnsw_tpu_torch.parallel.sharding import ShardedHNSWIndex
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the host's cores
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    try:
+        t0 = time.time()
+        idx = ShardedHNSWIndex("l2", DIM, num_shards=N_SHARDS, m=M, ef_construction=EF_C,
+                               device="cuda", process_group=dist.group.WORLD, dp=dp)
+        idx.load(prefix)
+        q = np.load(qfile)
+        info = {"load_s": time.time() - t0, "shards": idx._own}
+        res = {}
+        for name, kw in (("default", {"k": K, "ef": 200}), ("speed", SHARD_SPEED)):
+            idx.search(q[:16], **kw)
+            dist.barrier()
+            torch.cuda.synchronize()
+            COUNTS.reset()
+            t0 = time.time()
+            res["d_" + name], res["l_" + name] = idx.search(q, **kw)
+            torch.cuda.synchronize()
+            info[name] = {"seconds": time.time() - t0, "plain_on_cuda": COUNTS.plain_on_cuda,
+                          "counts": {f: getattr(COUNTS, f) for f in (
+                              "hop_dist_unified", "hop_dist_unified8", "hop_dist_unified4",
+                              "gather_dist_rows", "gather_dist_bf16", "hop_dist_inline")}}
+        np.savez(f"{out}.{rank}.npz", **res)
+        with open(f"{out}.{rank}.json", "w") as f:
+            json.dump(info, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase9(dev, launches, p2, p8, setdir, smi) -> dict:
+    """Phase 8's saved set under torch.distributed, every rank a process on
+    the one card with the gloo backend (two NCCL ranks cannot share a card):
+    2 ranks at dp=1 (4 shards each), then 4 ranks at dp=2 (the batch split in
+    two, 4 shards a rank). The first NQ_RANKS of phase 2's queries at ef=200
+    and in the speed mode: every rank returns the whole answer; dp=1 equals
+    phase 8 (e)'s one-process answers bit for bit, dp=2 at ef=200 too, and
+    its speed mode (whose seed matmul changes shape with the batch) is held
+    to phase 8 (b)'s recall on the same queries (the loaded set's) within
+    0.002 and to exact distances."""
+    import torch
+
+    x, q, gt = (a[:NQ_RANKS] if i else a for i, a in enumerate(p2["data"]))
+    ref = {mode: (d[:NQ_RANKS], lab[:NQ_RANKS]) for mode, (d, lab) in p8["reference"].items()}
+    # phase 8 (b)'s speed mode, on these queries (the loaded set's answers)
+    rec_speed = recall(ref["speed"][1], gt)
+    qfile = os.path.join(setdir, "queries.npy")
+    np.save(qfile, q)
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    for world, dp in P9_RUNS:
+        name = f"W{world}_dp{dp}"
+        stem = os.path.join(setdir, name)
+        init = f"tcp://127.0.0.1:{free_port()}"
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, "-c", (
+            f"import chip_smoke; chip_smoke.phase9_rank({r}, {world}, {dp}, {init!r}, "
+            f"{os.path.join(setdir, 'sharded')!r}, {qfile!r}, {stem!r})")], cwd=here)
+            for r in range(world)]
+        try:
+            codes = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        if codes != [0] * world:
+            fail(f"(9 {name}) rank exit codes {codes}")
+        res = [dict(np.load(f"{stem}.{r}.npz")) for r in range(world)]
+        info = []
+        for r in range(world):
+            with open(f"{stem}.{r}.json") as f:
+                info.append(json.load(f))
+        for r in range(1, world):
+            if any(not np.array_equal(res[r][k], res[0][k]) for k in res[0]):
+                fail(f"(9 {name}) rank {r} returned another answer than rank 0")
+        run = {"wall_s": wall, "load_s": max(i["load_s"] for i in info)}
+        for mode in ("default", "speed"):
+            d, lab = res[0]["d_" + mode], res[0]["l_" + mode]
+            rd, rl = ref[mode]
+            bitwise = bool(np.array_equal(d, rd) and np.array_equal(lab, rl))
+            counts = {f: sum(i[mode]["counts"][f] for i in info) for f in launches}
+            if any(i[mode]["plain_on_cuda"] for i in info):
+                fail(f"(9 {name} {mode}) a plain version ran on CUDA tensors")
+            need_launch(f"9 {name} {mode}", counts, "hop_dist_unified")
+            for f, c in counts.items():
+                launches[f] += c
+            secs = max(i[mode]["seconds"] for i in info)
+            run[mode] = {"bitwise": bitwise, "recall": recall(lab, gt), "qps": len(q) / secs,
+                         "distance_error": read_distances(q, x, lab, d, bf16=True)[2],
+                         "launches": counts}
+        out[name] = run
+        log(f"[phase9] {world} gloo ranks on one card, dp={dp}: wall {wall:.1f}s (start, load "
+            f"{run['load_s']:.1f}s, searches); ef=200: bit for bit with phase 8 (e) "
+            f"{run['default']['bitwise']}, recall@10 {run['default']['recall']:.4f}, "
+            f"{run['default']['qps']:.0f} qps; speed mode: bit for bit "
+            f"{run['speed']['bitwise']}, recall@10 {run['speed']['recall']:.4f} (one process "
+            f"{rec_speed:.4f}), {run['speed']['qps']:.0f} qps, distances "
+            f"{run['speed']['distance_error']:.3f} of tolerance; hop launches "
+            f"{run['default']['launches']['hop_dist_unified']} / "
+            f"{run['speed']['launches']['hop_dist_unified']} ({smi})")
+        if not run["default"]["bitwise"]:
+            fail(f"(9 {name}) the ef=200 answers differ from the one-process index's")
+        if dp == 1 and not run["speed"]["bitwise"]:
+            fail(f"(9 {name}) the speed-mode answers differ from the one-process index's")
+        if abs(run["speed"]["recall"] - rec_speed) > 0.002 or (
+                run["speed"]["distance_error"] > 1.0):
+            fail(f"(9 {name}) speed mode: recall {run['speed']['recall']} not within 0.002 of "
+                 f"the one-process {rec_speed}, or distances not exact")
     return out
 
 
@@ -2158,29 +2519,54 @@ def main() -> int:
     log(f"[phase0] torch {torch.__version__} cuda {torch.version.cuda}, device {name}")
     log(f"[phase0] nvidia-smi: {smi}")
 
-    t_start = time.time()
+    t_start = last = time.time()
+    phase_s: dict = {}  # wall seconds of each phase, in the order they ran
+
+    def mark(name):
+        nonlocal last
+        phase_s[name], last = time.time() - last, time.time()
+
     k1 = phase1(dev)
+    mark("1")
     launches = {"hop_dist_unified": 0, "hop_dist_unified8": 0, "hop_dist_unified4": 0,
                 "gather_dist_rows": 0, "gather_dist_bf16": 0, "hop_dist_inline": 0}
     p2 = phase2(dev, launches)
+    mark("2")
     p3 = phase3(dev, launches)
     torch.cuda.empty_cache()  # phase 3's index is gone: phase 4 gets the card
+    mark("3")
     p4, big = phase4(dev, launches, p2)
+    mark("4")
     p6 = phase6(dev, launches, p2, big)
-    p7 = {"range": phase7_range(dev, launches, p2, smi), "documents": phase7_docs(dev, launches, smi)}
-    p8 = phase8(dev, launches, p2, smi)
-    del big, p2["serve"]  # the 1M and 100k indexes: phase 5 gets the card
-    torch.cuda.empty_cache()
+    mark("6")
+    p7, ranged, docs = {}, None, None
+    p7["range"], ranged = phase7_range(dev, launches, p2, smi)
+    p7["documents"], docs = phase7_docs(dev, launches, smi)
+    mark("7ab")
+    setdir = tempfile.mkdtemp(prefix="hnsw_phase8_")  # phase 8's saved set, for phase 9
+    try:
+        p8 = phase8(dev, launches, p2, ranged, docs, setdir, smi)
+        mark("8")
+        del big, p2["serve"], ranged, docs  # phase 9 and phase 5 get the card
+        torch.cuda.empty_cache()
+        p9 = phase9(dev, launches, p2, p8, setdir, smi)
+        mark("9")
+    finally:
+        shutil.rmtree(setdir, ignore_errors=True)
+    del p8["reference"]
     tmp = tempfile.mkdtemp(prefix="hnsw_phase5_")  # phase 5's deployment, kept for 7 (c)
     try:
         p5 = phase5(dev, launches, tmp)
+        mark("5")
         p7["native"] = phase7_native(dev, tmp, smi)
+        mark("7c")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"summary": {"recall@10": p2["recall"], "qps": p2["qps"], "tiers": p3,
                                 "bulk_build": p4, "deployment": p5, "interop": p6,
-                                "stop_conditions": p7, "sharded": p8,
-                                "seconds": time.time() - t_start, "device": smi}}))
+                                "stop_conditions": p7, "sharded": p8, "distributed": p9,
+                                "phase_s": phase_s, "seconds": time.time() - t_start,
+                                "device": smi}}))
     rows = [  # (counter, phase-1 key, source, TPU pallas_call it replaces)
         ("hop_dist_unified", "hop_bf16", "hop_ring.cuh", "pallas_gather.py:795"),
         ("gather_dist_rows", "gather_f32", "gather_dist.cu", "pallas_gather.py:1051"),

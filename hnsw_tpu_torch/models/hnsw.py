@@ -79,6 +79,7 @@ def _apply_row_deltas(
     dirty_rows: torch.Tensor,  # [Kb, m0_pad] int32
     *,
     exact_i8: bool = False,  # unified8 codes are l2u8's lossless scale-1 codes
+    new_sq: torch.Tensor | None = None,  # [Nb] f32 squared norms of new_vecs
 ) -> None:
     """Apply insert and update deltas to the device state IN PLACE: write the
     new vectors (with their squared norms and, on the quantized tiers, codes
@@ -90,7 +91,9 @@ def _apply_row_deltas(
 
     Squared norms and codes are taken from the STORED values (bf16-rounded
     under bf16 storage), as a full sync takes them, so a delta state equals
-    a rebuild; the JAX package's delta takes them from the f32 input."""
+    a rebuild; the JAX package's delta takes them from the f32 input.
+    `new_sq` overrides the new rows' squared norms (a sharded shard's, summed
+    as its full sync sums them)."""
     kind = st.tier or "off"
     x = st.vectors
     if new_vecs.shape[0]:
@@ -99,7 +102,7 @@ def _apply_row_deltas(
         x[ni] = stored
         stored = stored.float()
         if st.sq_norms is not None:
-            st.sq_norms[ni] = (stored * stored).sum(-1)
+            st.sq_norms[ni] = (stored * stored).sum(-1) if new_sq is None else new_sq
         if kind in ("unified8", "unified4"):
             st.codes[ni], st.scales[ni] = quantize_for_tier(stored, kind, exact_i8)
     if dirty_ids.shape[0]:
@@ -118,6 +121,11 @@ def _apply_row_deltas(
                 table.codes[di], table.scales[di] = quant_rows(
                     kind, st.codes, st.scales, dirty_rows
                 )
+
+
+def _sq_norms_f64(x: np.ndarray) -> np.ndarray:
+    """Squared norms of f32 rows, summed in float64 and rounded to f32."""
+    return (x.astype(np.float64) ** 2).sum(-1).astype(np.float32)
 
 
 def _rescore_topk(q, x, ids, dists, *, k, m, space):
@@ -267,6 +275,12 @@ class HNSWIndex:
         # the table is built (a serve-only index); a mutation then resyncs
         # in full
         self.keep_delta_tables = True
+        # set by a ShardedHNSWIndex on its shards: the tier every shard of
+        # the index serves (None: the ladder picks from this index's budget),
+        # and squared norms summed in float64 over the f32 rows, as the JAX
+        # package's stacked shards sum them
+        self._forced_tier: str | None = None
+        self._sq_f64 = False
         self._device: _DeviceState | None = None
         self._landmark_cache = None
         self._dirty = True
@@ -411,21 +425,23 @@ class HNSWIndex:
         n_pad = round_up(n + 1 + headroom, 128)
         dev = self.device
         dg = graph_device_arrays(g, n_pad, device=dev)
-        x = torch.from_numpy(
-            pad_vectors(self._builder.export_vectors(), n_pad)
-        ).to(dev, dtype=self.space.storage_dtype)
+        x_np = pad_vectors(self._builder.export_vectors(), n_pad)
+        x = torch.from_numpy(x_np).to(dev, dtype=self.space.storage_dtype)
         sq = None
-        if self.space.needs_sq_norms:
+        if self.space.needs_sq_norms and self._sq_f64:
+            sq = torch.from_numpy(_sq_norms_f64(x_np)).to(dev)
+        elif self.space.needs_sq_norms:
             # squared norms of the stored (e.g. bf16-rounded) values, in f32
             x32 = x.float()
             sq = (x32 * x32).sum(-1)
             del x32
+        del x_np
         tier = table = upper = nbr_vectors = codes = scales = None
         if self.inline_neighbors:
             tier, table, upper, codes, scales = build_inline_tables(
                 x, dg, self.dim, self._unified_budget(), self._split_budget(),
                 upper_inline=self.upper_inline, exact_i8=self.space.exact_i8,
-                keep_delta_tables=self.keep_delta_tables,
+                keep_delta_tables=self.keep_delta_tables, tier=self._forced_tier,
             )
             if tier == "split":
                 table, nbr_vectors = None, table
@@ -512,6 +528,9 @@ class HNSWIndex:
                     torch.from_numpy(ids_c).to(dev),
                     torch.from_numpy(rows_c).to(dev),
                     exact_i8=self.space.exact_i8,
+                    new_sq=torch.from_numpy(
+                        _sq_norms_f64(new_vecs if first else new_vecs[:0])
+                    ).to(dev) if self._sq_f64 else None,
                 )
         except torch.cuda.OutOfMemoryError:
             self._device = self._landmark_cache = None

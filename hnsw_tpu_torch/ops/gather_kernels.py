@@ -431,6 +431,7 @@ def build_inline_tables(
     x: torch.Tensor, dg, dim: int, budget: int | None,
     split_max_bytes: int | None = None, *, upper_inline: bool = True,
     exact_i8: bool = False, keep_delta_tables: bool = True,
+    tier: str | None = None,
 ) -> InlineTables:
     """Build the tables of the rung pick_tier names (the tier ladder,
     pallas_gather.build_inline_tables). `upper_inline=False` skips the
@@ -438,9 +439,11 @@ def build_inline_tables(
     `keep_delta_tables=False` drops the quantized tiers' side tables (a
     serve-only index: a later mutation then resyncs in full). Where JAX
     falls silently to XLA gathers below its last rung, this raises
-    MemoryError: plain gathers are served only on inline_neighbors=False."""
+    MemoryError: plain gathers are served only on inline_neighbors=False.
+    A `tier` given builds that rung whatever the budgets (the shards of a
+    sharded index serve the one rung picked for the largest of them)."""
     n_pad, m0 = dg.level0.shape
-    tier = pick_tier(n_pad, m0, dim, budget, split_max_bytes)
+    tier = tier or pick_tier(n_pad, m0, dim, budget, split_max_bytes)
     if tier is None:
         need = tier_bytes(n_pad, m0, dim)
         raise MemoryError(

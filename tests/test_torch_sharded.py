@@ -32,6 +32,7 @@ from hnsw_tpu.parallel import sharding as jsh
 
 from hnsw_tpu_torch.models.hnsw import HNSWIndex
 from hnsw_tpu_torch.ops.gather_kernels import tier_bytes
+from hnsw_tpu_torch.parallel import sharding as port_sharding
 from hnsw_tpu_torch.parallel.sharding import ShardedHNSWIndex
 
 REPO = Path(__file__).resolve().parents[1]
@@ -224,13 +225,11 @@ def test_tier_matches_jax(shared, tier):
                                          upper_inline=False)
     assert j._arrays.kind == tier and j._arrays.upper_tabs == ()
     t = _port()
+    t.upper_inline = False
     t.load(prefix)
-    for shard in t._shards:
-        shard.upper_inline = False
-        st = shard._sync_device()
-        need = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], D)
-        shard.rebuild_device_tables(
-            None if tier == "unified" else (need["unified4"] + need["unified8"]) // 2)
+    need = tier_bytes(n_pad, 2 * M, D)
+    assert t.rebuild_device_tables(
+        None if tier == "unified" else (need["unified4"] + need["unified8"]) // 2) == tier
     assert [(sh._device.tier, sh._device.upper_tables) for sh in t._shards] == [(tier, None)] * S
     # k=4 on int4 (a rescore of 16): the Pallas kernels compile in
     # interpret mode for ~10 s (bf16) and ~20 s (int4) on one core
@@ -238,14 +237,53 @@ def test_tier_matches_jax(shared, tier):
     _assert_same(_search(t, q, kw), _search(j, q, kw))
 
 
-def test_mixed_tiers_raise(shared):
+def _small_shards(sizes):
+    """A port index of S shards of the given sizes (serial builds)."""
+    rng = np.random.default_rng(5)
     t = _port()
-    t.load(shared["prefix"])
-    st = t._shards[0]._sync_device()
-    need = tier_bytes(st.graph.n_pad, st.graph.level0.shape[1], D)
-    t._shards[0].rebuild_device_tables((need["unified8"] + need["unified"]) // 2)
-    with pytest.raises(ValueError, match="unified8"):
-        _search(t, shared["q"], {})
+    t._shards = []
+    for i, n in enumerate(sizes):
+        shard = HNSWIndex("l2", dim=D, m=M, ef_construction=EFC, seed=123 + i, device="cpu")
+        shard._builder.add_batch(rng.normal(size=(n, D)).astype(np.float32),
+                                 np.arange(1000 * i, 1000 * i + n), n_threads=1)
+        t._shards.append(shard)
+    t._reindex_labels()
+    return t
+
+
+def test_one_tier_for_every_shard(monkeypatch):
+    """Every shard serves the rung the ladder picks at the largest shard's
+    n_pad (JAX's one `kind`, sharding.py:196-197), where a smaller shard
+    alone would take a higher one; a growth that moves that rung re-syncs
+    every shard at the new one; the default budget is the free share of
+    each card over the shards it holds."""
+    # shards of 100 rows pad to 128, the one of 150 to 256
+    small, large = tier_bytes(128, 2 * M, D), tier_bytes(256, 2 * M, D)
+    budget = small["unified"]
+    assert large["unified8"] > budget >= large["unified4"]
+    t = _small_shards([150] + [100] * (S - 1))
+    assert t.rebuild_device_tables(budget) == "unified4"
+    assert [(sh._device.tier, sh._device.graph.n_pad) for sh in t._shards] == (
+        [("unified4", 256)] + [("unified4", 128)] * (S - 1))
+    small_alone = t._shards[1]
+    small_alone._forced_tier = None
+    assert small_alone.rebuild_device_tables(budget).tier == "unified"
+
+    # every shard grows past its 128 rows: the largest n_pad moves to 256
+    t = _small_shards([100] * S)
+    assert t.rebuild_device_tables(budget) == "unified"
+    rng = np.random.default_rng(6)
+    extra = rng.normal(size=(29 * S, D)).astype(np.float32)
+    t.add_items(extra, np.arange(50_000, 50_000 + len(extra)))
+    d, lab = t.search(extra[:8], k=1, ef=EF)
+    assert t.last_sync_mode == "full" and (lab[:, 0] == np.arange(50_000, 50_008)).all()
+    assert {(sh._device.tier, sh._device.graph.n_pad) for sh in t._shards} == {("unified4", 256)}
+
+    # no budget: UNIFIED_FREE_SHARE of the card over its S shards
+    monkeypatch.setattr(port_sharding, "free_share", lambda dev: S * budget)
+    t = _small_shards([150] + [100] * (S - 1))
+    t.search(extra[:8], k=1, ef=EF)
+    assert t._tier == "unified4" and t.last_sync_mode == "full"
 
 
 def test_build_matches_jax():
