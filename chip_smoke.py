@@ -723,10 +723,12 @@ def counted(name, launches, fn):
     return out, secs, counts
 
 
-def run_mode(idx, name, qs, reps, launches, **kw):
+def run_mode(idx, name, qs, reps, launches, warm=True, **kw):
     """Search `qs` `reps` times with the kernels' counts set to 0 just before
     and read just after; adds the counts to `launches`. Fails if a plain
-    version ran on a CUDA tensor or the results are malformed."""
+    version ran on a CUDA tensor or the results are malformed. `warm`: one
+    untimed search of 16 queries first, for an index whose device state an
+    earlier call has not synced yet."""
 
     def searches():
         times = []
@@ -736,7 +738,8 @@ def run_mode(idx, name, qs, reps, launches, **kw):
             times.append(time.time() - t)
         return d, lab, times
 
-    idx.search(qs[:16], **kw)  # warm-up (allocator, kernel load)
+    if warm:
+        idx.search(qs[:16], **kw)  # warm-up (device sync, allocator, kernel load)
     (d, lab, times), _, counts = counted(f"mode {name}", launches, searches)
     if d.shape != (len(qs), K) or not np.isfinite(d).all() or (lab < 0).any():
         fail(f"mode {name}: malformed results")
@@ -2084,7 +2087,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
         f"({smi})")
 
     # (a) the default descent at ef=200
-    d_a, lab_a, qps_a, c_a = run_mode(idx, "8a", q, 1, launches, k=K, ef=200)
+    d_a, lab_a, qps_a, c_a = run_mode(idx, "8a", q, 2, launches, warm=False, k=K, ef=200)
     need_launch("8a", c_a, "hop_dist_unified")
     rec_a = recall(lab_a, gt)
     worst = read_distances(q, x, lab_a, d_a, bf16=True)[2]
@@ -2107,7 +2110,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
 
     step("a")
     # (b) the speed mode
-    _, lab_b, qps_b, c_b = run_mode(idx, "8b", q, 2, launches, **SHARD_SPEED)
+    _, lab_b, qps_b, c_b = run_mode(idx, "8b", q, 2, launches, warm=False, **SHARD_SPEED)
     need_launch("8b", c_b, "hop_dist_unified")
     rec_b = recall(lab_b, gt)
     out["b"] = {"recall": rec_b, "qps": qps_b, "launches": c_b}
@@ -2121,14 +2124,14 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     victims = np.unique(lab_a[:64, 0])
     for v in victims:
         idx.mark_deleted(int(v))
-    _, lab_del, _, c_del = run_mode(idx, "8c deleted", q, 1, launches, k=K, ef=200)
+    _, lab_del, _, c_del = run_mode(idx, "8c deleted", q, 1, launches, warm=False, k=K, ef=200)
     back = int(np.isin(lab_del, victims).sum())
     for v in victims:
         idx.unmark_deleted(int(v))
-    _, lab_un, _, c_un = run_mode(idx, "8c unmarked", q, 1, launches, k=K, ef=200)
+    _, lab_un, _, c_un = run_mode(idx, "8c unmarked", q, 1, launches, warm=False, k=K, ef=200)
     same = int((lab_un == lab_a).all(axis=1).sum())
     even = np.arange(N) % 2 == 0
-    _, lab_f, qps_f, c_f = run_mode(idx, "8c filter", q, 1, launches, k=K, ef=200,
+    _, lab_f, qps_f, c_f = run_mode(idx, "8c filter", q, 1, launches, warm=False, k=K, ef=200,
                                     filter_labels=even)
     oracle = BruteforceIndex(L2Space(DIM), device=dev)
     oracle.add_items(x[even], np.flatnonzero(even))
@@ -2158,7 +2161,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     tiers_of("8d", idx, "unified8")
     torch.cuda.synchronize()
     sync_d = time.time() - t0
-    d_d, lab_d, qps_d, c_d = run_mode(idx, "8d", q, 1, launches, k=K, ef=200)
+    d_d, lab_d, qps_d, c_d = run_mode(idx, "8d", q, 2, launches, warm=False, k=K, ef=200)
     need_launch("8d", c_d, "hop_dist_unified8", "gather_dist_rows")
     rec_d = recall(lab_d, gt)
     worst_d = oracle_error(d_d, lab_d, q, x, gt, gt_d)
@@ -2185,8 +2188,8 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     idx.load(prefix)
     load_s = time.time() - t0
     tiers_of("8e", idx, "unified")
-    d_e, lab_e, qps_e, c_e = run_mode(idx, "8e", q, 1, launches, k=K, ef=200)
-    d_es, lab_es, _, _ = run_mode(idx, "8e speed", q, 1, launches, **SHARD_SPEED)
+    d_e, lab_e, qps_e, c_e = run_mode(idx, "8e", q, 1, launches, warm=False, k=K, ef=200)
+    d_es, lab_es, _, _ = run_mode(idx, "8e speed", q, 1, launches, warm=False, **SHARD_SPEED)
     same_e = int((lab_e == lab_a).all(axis=1).sum())
     out["e"] = {"save_s": save_s, "load_s": load_s, "same_labels": same_e, "qps": qps_e,
                 "max_rel_diff": float(np.max(np.abs(d_e - d_a) / d_a))}
@@ -2211,10 +2214,10 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     (_, lab_self), sync_f, c_fs = counted("8f", launches, lambda: idx.search(new, k=1, ef=200))
     mode_f = idx.last_sync_mode
     hit_f = float(np.mean(lab_self[:, 0] == new_labels))
-    d_fd, lab_fd, _, _ = run_mode(idx, "8f delta", q, 1, launches, k=K, ef=200)
+    d_fd, lab_fd, _, _ = run_mode(idx, "8f delta", q, 1, launches, warm=False, k=K, ef=200)
     idx.rebuild_device_tables()
     tiers_of("8f", idx, "unified")
-    d_fr, lab_fr, _, _ = run_mode(idx, "8f rebuilt", q, 1, launches, k=K, ef=200)
+    d_fr, lab_fr, _, _ = run_mode(idx, "8f rebuilt", q, 1, launches, warm=False, k=K, ef=200)
     same_f = int((lab_fd == lab_fr).all(axis=1).sum())
     rel_f = float(np.max(np.abs(d_fd - d_fr) / d_fr))
     out["f"] = {"add_s": add_s, "sync_and_search_s": sync_f, "mode": mode_f, "self_hit": hit_f,
@@ -2238,7 +2241,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     idx.load(prefix)
     idx.rebuild_device_tables(0)
     tiers_of("8g split", idx, "split")
-    d_gs, lab_gs, qps_gs, c_gs = run_mode(idx, "8g split", q, 1, launches, k=K, ef=200)
+    d_gs, lab_gs, qps_gs, c_gs = run_mode(idx, "8g split", q, 1, launches, warm=False, k=K, ef=200)
     need_launch("8g split", c_gs, "hop_dist_inline")
     rec_gs = recall(lab_gs, gt)
     worst_gs = read_distances(q, x, lab_gs, d_gs, bf16=True)[2]
@@ -2250,7 +2253,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     tiers_of("8g int4", idx, "unified4")
     if idx._shards[0]._device.vectors.dtype != torch.bfloat16:
         fail("(8g int4) the vector table is not bf16")
-    d_g4, lab_g4, qps_g4, c_g4 = run_mode(idx, "8g int4", q, 1, launches, k=K, ef=200)
+    d_g4, lab_g4, qps_g4, c_g4 = run_mode(idx, "8g int4", q, 1, launches, warm=False, k=K, ef=200)
     need_launch("8g int4", c_g4, "hop_dist_unified4", "gather_dist_bf16")
     rec_g4 = recall(lab_g4, gt)
     worst_g4 = read_distances(q, x, lab_g4, d_g4, bf16=True)[2]
@@ -2281,7 +2284,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     if st.codes is not None or st.upper_tables is not None:
         fail("(8h) the side tables or the upper tables were kept")
     del st
-    d_h, lab_h, qps_h, c_h = run_mode(idx, "8h", q, 1, launches, k=K, ef=200)
+    d_h, lab_h, qps_h, c_h = run_mode(idx, "8h", q, 1, launches, warm=False, k=K, ef=200)
     need_launch("8h", c_h, "hop_dist_unified8", "gather_dist_bf16")
     rec_h = recall(lab_h, gt)
     worst_h = read_distances(q, x, lab_h, d_h, bf16=True)[2]
@@ -2290,7 +2293,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
                                      lambda: idx.search(new[:N_ADD], k=1, ef=200))
     mode_h = idx.last_sync_mode
     hit_h = float(np.mean(lab_hs[:, 0] == new_labels[:N_ADD]))
-    d_h2, lab_h2, _, _ = run_mode(idx, "8h after", q, 1, launches, k=K, ef=200)
+    d_h2, lab_h2, _, _ = run_mode(idx, "8h after", q, 1, launches, warm=False, k=K, ef=200)
     worst_h2 = read_distances(q, np.concatenate([x, new[:N_ADD]]), lab_h2, d_h2, bf16=True)[2]
     out["h"] = {"recall": rec_h, "qps": qps_h, "launches": c_h, "distance_error": worst_h,
                 "mode": mode_h, "self_hit": hit_h, "sync_and_search_s": sync_h,
@@ -2315,7 +2318,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     qr = q[:len(truth)]  # phase 7 (a)'s queries
     idx = new_index()
     idx.load(prefix)
-    idx.search(q[:16], k=K, ef=200)  # the first (full) device sync
+    idx.rebuild_device_tables()  # the first (full) device sync
     ladder = LadderLog(idx)
     (d_r, lab_r, valid), secs_r, c_r = counted("8i range", launches, lambda: epsilon_search(
         ladder, qr, eps, min_candidates=1, max_candidates=EPS_MAX, ef=0))
@@ -2337,7 +2340,7 @@ def phase8(dev, launches, p2, ranged, docs, setdir, smi) -> dict:
     if mv.num_docs != N_DOC or mv.index.num_elements != len(xd):
         fail(f"(8i) {mv.num_docs} documents, {mv.index.num_elements} vectors")
     index = mv.index
-    index.search(qd[:16], k=K, ef=EF_DOCS)  # the first (full) device sync
+    index.rebuild_device_tables()  # the first (full) device sync
     mv.index = LadderLog(index)
     (dd, got_docs), secs_docs, c_docs = counted("8i docs", launches, lambda: mv.search(
         qd, k_docs=K_DOCS, ef=EF_DOCS, oversample=OVERSAMPLE))

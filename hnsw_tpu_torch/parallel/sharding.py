@@ -97,9 +97,10 @@ def merge_shard_results(
 class ShardedHNSWIndex:
     """Dataset partitioned into one HNSW sub-index per shard.
 
-    Build runs one native builder per shard in a thread pool (the C ABI
-    releases the GIL, so shard builds use all host cores — the reference's
-    build loop is strictly serial, index_builder/build.cpp:137-145).
+    Build and add_items run one native builder per shard in a thread pool
+    (the C ABI releases the GIL, so shard builds use all host cores — the
+    reference's build loop is strictly serial, index_builder/build.cpp
+    :137-145).
     `inline_neighbors` is passed to every shard's HNSWIndex (None: the tier
     ladder; False: plain row gathers). `process_group` and `dp` spread the
     shards and the batch over ranks (the module docstring).
@@ -160,8 +161,19 @@ class ShardedHNSWIndex:
             if nccl:
                 torch.cuda.set_device(here)
             self._comm_device = here if nccl else torch.device("cpu")
+        # shards held on each card over the whole group (ranks on one host):
+        # a card's free share is split over all of them
+        held = [(str(d), 1) for d in self.devices if d is not None]
+        if process_group is not None:
+            got = [None] * world
+            dist.all_gather_object(got, held, group=process_group)
+            held = [h for part in got for h in part]
+        self._card_shards: dict[str, int] = {}
+        for card, n in held:
+            self._card_shards[card] = self._card_shards.get(card, 0) + n
         # a per-shard unified-table budget in bytes (None: UNIFIED_MAX_BYTES,
-        # else UNIFIED_FREE_SHARE of each card's free memory over its shards)
+        # else UNIFIED_FREE_SHARE of each card's free memory over the shards
+        # every rank holds there)
         self.unified_max_bytes: int | None = None
         self.upper_inline = True
         self.keep_delta_tables = True
@@ -173,6 +185,7 @@ class ShardedHNSWIndex:
         self._shard_labels: list[np.ndarray] | None = None  # per-shard labels
         self._shard_deleted: list[np.ndarray] | None = None  # per-shard bool
         self._label_map: dict[int, tuple[int, int]] | None = None  # label -> (shard, local)
+        self._pool: concurrent.futures.ThreadPoolExecutor | None = None  # see _each
 
     def _new_shard(self, i: int) -> HNSWIndex:
         return HNSWIndex(
@@ -183,6 +196,17 @@ class ShardedHNSWIndex:
 
     def _own_shards(self) -> list[HNSWIndex]:
         return [self._shards[i] for i in self._own]
+
+    def _each(self, fn, shards: list[int]) -> list:
+        """[fn(i) for i in shards] on the index's pool, a thread a shard (the
+        native builder releases the GIL; the pool lives as long as the index,
+        as add_document's many small inserts would pay a thread start each);
+        inline for one shard, or when torch is held to one host thread."""
+        if len(shards) <= 1 or torch.get_num_threads() == 1:
+            return [fn(i) for i in shards]
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=len(self._own))
+        return list(self._pool.map(fn, shards))
 
     def build(self, data: np.ndarray, labels: np.ndarray | None = None) -> None:
         data = self.space.preprocess(data)
@@ -199,8 +223,7 @@ class ShardedHNSWIndex:
             shard._builder.add_batch(data[i::s], labels[i::s])
             return shard
 
-        with concurrent.futures.ThreadPoolExecutor(max_workers=len(self._own)) as ex:
-            built = list(ex.map(build_one, self._own))
+        built = self._each(build_one, self._own)
         self._shards = [None] * s
         for i, shard in zip(self._own, built):
             self._shards[i] = shard
@@ -242,8 +265,10 @@ class ShardedHNSWIndex:
         exist route to their owning shard as in-place updates, which unmark
         them; new rows go round-robin from the currently smallest shards (a
         stable argsort of the sizes keeps the balance). On an index not yet
-        built the shards start empty, so this equals `build`. The devices
-        re-sync as per-shard row deltas on the next search."""
+        built the shards start empty, so this equals `build`. The shards
+        insert their rows at once, each in its own order (updates first),
+        as `build` does. The devices re-sync as per-shard row deltas on the
+        next search."""
         if self._shards is None:
             self._shards = [None] * self.num_shards
             for i in self._own:
@@ -255,11 +280,11 @@ class ShardedHNSWIndex:
             labels = np.arange(start, start + data.shape[0], dtype=np.int64)
         labels = np.asarray(labels, dtype=np.int64).reshape(-1)
         exists = np.asarray([int(l) in self._label_map for l in labels], dtype=bool)
+        batches = {i: [] for i in self._own}  # shard -> its (rows, labels) in order
         for row, lab in zip(data[exists], labels[exists]):
             i, local = self._label_map[int(lab)]
-            if self._shards[i] is not None:
-                self._shards[i]._builder.add_batch(row[None, :], np.asarray([lab]))
-                self._shards[i]._dirty = True
+            if i in batches:
+                batches[i].append((row[None, :], np.asarray([lab])))
             self._shard_deleted[i][local] = False
         data, labels = data[~exists], labels[~exists]
         sizes = np.asarray([len(l) for l in self._shard_labels])
@@ -271,9 +296,8 @@ class ShardedHNSWIndex:
             if not sel.any():
                 continue
             labs = labels[sel]
-            if self._shards[i] is not None:
-                self._shards[i]._builder.add_batch(data[sel], labs)
-                self._shards[i]._dirty = True
+            if i in batches:
+                batches[i].append((data[sel], labs))
             first_local = len(self._shard_labels[i])
             self._shard_labels[i] = np.concatenate([self._shard_labels[i], labs])
             self._shard_deleted[i] = np.concatenate(
@@ -281,6 +305,13 @@ class ShardedHNSWIndex:
             )
             for off, lab in enumerate(labs.tolist()):
                 self._label_map[lab] = (i, first_local + off)
+
+        def insert(i):
+            for rows, labs in batches[i]:
+                self._shards[i]._builder.add_batch(rows, labs)
+            self._shards[i]._dirty = True
+
+        self._each(insert, [i for i in self._own if batches[i]])
 
     def mark_deleted(self, label: int) -> None:
         shard, local = self._locate(label)
@@ -364,14 +395,13 @@ class ShardedHNSWIndex:
     def _budget(self, cap: int | None) -> int | None:
         """A per-shard table budget in bytes, the same on every rank: `cap`,
         else UNIFIED_FREE_SHARE of each card's free memory divided by the
-        shards it holds (None, no limit, on the CPU), the least over cards."""
+        shards every rank holds there (None, no limit, on the CPU), the
+        least over cards."""
         if cap is None:
-            per_card = {}
-            for i in self._own:
-                per_card[self.devices[i]] = per_card.get(self.devices[i], 0) + 1
-            shares = [free_share(d) for d in per_card]
-            if None not in shares:
-                cap = min(s // per_card[d] for s, d in zip(shares, per_card))
+            cards = {self.devices[i] for i in self._own}
+            shares = {d: free_share(d) for d in cards}
+            if None not in shares.values():
+                cap = min(s // self._card_shards[str(d)] for d, s in shares.items())
         cap = self._reduce(_NO_LIMIT if cap is None else cap, dist.ReduceOp.MIN)
         return None if cap == _NO_LIMIT else cap
 
@@ -557,6 +587,9 @@ class ShardedHNSWIndex:
 # ---------------------------------------------------------------------------
 
 
+_DRYRUN_JOIN_S = 600  # how long dryrun_multiproc waits for each rank
+
+
 def _dryrun_rank(rank: int, world: int, store: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
@@ -573,15 +606,23 @@ def _dryrun_rank(rank: int, world: int, store: str) -> None:
         if d.shape != (32, 5) or labels.shape != (32, 5) or labels.min() < 0:
             raise RuntimeError(f"rank {rank}: shapes {d.shape} {labels.shape}, "
                                f"least label {labels.min()}")
+        # self-queries find themselves through the merge, with the descent
+        # and with landmark-seeded entries
+        for seeds in (0, 4):
+            _, labels = idx.search(x[:32], k=5, ef=32, entry_seeds=seeds)
+            hit = float(np.mean(labels[:, 0] == np.arange(32)))
+            if hit < 0.9:
+                raise RuntimeError(f"rank {rank}: self-hit {hit} with entry_seeds={seeds}")
     finally:
         dist.destroy_process_group()
 
 
-def dryrun_multiproc(n_procs: int, timeout: float = 600) -> None:
+def dryrun_multiproc(n_procs: int) -> None:
     """Start `n_procs` gloo ranks on the CPU (dp=2 when n_procs >= 4 and
     even, else dp=1; one shard per rank of a dp group), build a tiny
-    sharded index, search once, and check every rank's shapes and that
-    every label is found. Raises if a rank fails or outlives `timeout`."""
+    sharded index and check every rank's shapes, that every label is
+    found, and that self-queries find themselves (plain and with
+    entry_seeds=4). Raises if a rank fails or outlives _DRYRUN_JOIN_S."""
     import multiprocessing
     import tempfile
 
@@ -594,7 +635,7 @@ def dryrun_multiproc(n_procs: int, timeout: float = 600) -> None:
             p.start()
         try:
             for p in procs:
-                p.join(timeout)
+                p.join(_DRYRUN_JOIN_S)
         finally:
             for p in procs:
                 if p.is_alive():

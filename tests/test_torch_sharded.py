@@ -30,6 +30,7 @@ from jax.sharding import Mesh
 
 from hnsw_tpu.parallel import sharding as jsh
 
+import hnsw_tpu_torch.native.hnsw_builder as tnative
 from hnsw_tpu_torch.models.hnsw import HNSWIndex
 from hnsw_tpu_torch.ops.gather_kernels import tier_bytes
 from hnsw_tpu_torch.parallel import sharding as port_sharding
@@ -256,7 +257,10 @@ def test_one_tier_for_every_shard(monkeypatch):
     n_pad (JAX's one `kind`, sharding.py:196-197), where a smaller shard
     alone would take a higher one; a growth that moves that rung re-syncs
     every shard at the new one; the default budget is the free share of
-    each card over the shards it holds."""
+    each card over the shards it holds. Inserts run on one thread."""
+    add = tnative.NativeHNSWBuilder.add_batch
+    monkeypatch.setattr(tnative.NativeHNSWBuilder, "add_batch",
+                        lambda self, v, l, n_threads=0, _add=add: _add(self, v, l, n_threads=1))
     # shards of 100 rows pad to 128, the one of 150 to 256
     small, large = tier_bytes(128, 2 * M, D), tier_bytes(256, 2 * M, D)
     budget = small["unified"]

@@ -107,6 +107,27 @@ def test_merge_matches_one_process(shared, world, dp):
         t._dp_rank, t._own, t.dp = rank_layout(1, 0, 1, 8) + (1,)
 
 
+def test_budget_counts_every_rank_on_a_card(monkeypatch):
+    """Two ranks of a group on one card (as a bare "cuda" gives when ranks
+    outnumber cards): the card's free share is divided over the shards both
+    ranks hold there, not only this rank's four. The group is simulated in
+    this process: its collectives answer as the other rank would."""
+    from hnsw_tpu_torch.parallel import sharding as sh
+
+    monkeypatch.setattr(sh.dist, "get_world_size", lambda group: 2)
+    monkeypatch.setattr(sh.dist, "get_rank", lambda group: 0)
+    monkeypatch.setattr(sh.dist, "get_backend", lambda group: "gloo")
+    monkeypatch.setattr(sh.dist, "all_gather_object",
+                        lambda out, obj, group: out.__setitem__(slice(None), [obj, obj]))
+    monkeypatch.setattr(sh.dist, "all_reduce", lambda t, op, group: None)
+    monkeypatch.setattr(sh, "free_share", lambda device: 8_000_000)
+    t = ShardedHNSWIndex("l2", D, num_shards=8, m=M, ef_construction=EFC, device="cpu",
+                         process_group=object())
+    assert t._own == [0, 2, 4, 6] and t._card_shards == {"cpu": 8}
+    assert t._budget(None) == 1_000_000
+    assert t._budget(3_000) == 3_000
+
+
 # -- gloo processes (slow) ---------------------------------------------------
 
 WORKER = r"""

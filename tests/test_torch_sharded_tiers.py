@@ -357,3 +357,25 @@ def test_trim_matches_jax(shared, serial):
     # JAX's re-stack picks its kind from its module budget again, where
     # the port keeps the index's budget: only the mode is compared
     assert t.last_sync_mode == j.last_sync_mode == "full"
+
+
+@pytest.mark.slow
+def test_pooled_inserts_equal_inline(shared, serial):
+    """add_items inserts into the shards from a thread each when torch may
+    use more than one host thread: every shard's graph, and so every
+    answer, equals the inline inserts' of one thread."""
+    q = shared["q"]
+    graphs, answers = [], []
+    for threads in (1, 4):
+        torch.set_num_threads(threads)
+        try:
+            t = _port(shared["prefix"], inline_neighbors=False)
+            _mutate(t, shared)
+        finally:
+            torch.set_num_threads(1)
+        graphs.append([s._builder.export_graph() for s in t._shards])
+        answers.append(_search(t, q))
+    for a, b in zip(*graphs):
+        np.testing.assert_array_equal(a.level0, b.level0)
+    np.testing.assert_array_equal(answers[0][1], answers[1][1])
+    np.testing.assert_array_equal(answers[0][0], answers[1][0])
