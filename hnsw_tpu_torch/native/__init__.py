@@ -2,13 +2,14 @@
 the native service frontends.
 
 The port does not import the reference package (every module of it imports
-jax). It compiles the reference's unchanged sources
-``hnsw_tpu/native/builder.cpp`` and ``hnsw_tpu/native/vecstore.cpp``, read
-by path, with the reference's flags (``g++ -O3 -march=native -std=c++20
--shared -fPIC``) into ``hnsw_tpu_torch/_build/libbuilder.so`` and
-``libvecstore.so``, and binds the same C ABIs. ``build_binary`` compiles
-the host-only HTTP frontends ``storage_main.cpp`` and ``query_main.cpp``
-the same way into executables ``_build/bin_<name>``.
+jax), and reads none of its files: it keeps its own copies of the native
+sources in ``hnsw_tpu_torch/native/src/`` (``src/README.md`` names where
+each came from). ``builder.cpp`` and ``vecstore.cpp`` are compiled with the
+reference's flags (``g++ -O3 -march=native -std=c++20 -shared -fPIC``)
+into ``hnsw_tpu_torch/_build/libbuilder.so`` and ``libvecstore.so``, and
+bound through the same C ABIs. ``build_binary`` compiles the host-only
+HTTP frontends ``storage_main.cpp`` and ``query_main.cpp`` the same way
+into executables ``_build/bin_<name>``.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ import threading
 
 from hnsw_tpu_torch.buildutil import BUILD_DIR, PKG_DIR, build_if_stale
 
-_NATIVE_DIR = os.path.join(os.path.dirname(PKG_DIR), "hnsw_tpu", "native")
-BUILDER_SRC = os.path.join(_NATIVE_DIR, "builder.cpp")
-VECSTORE_SRC = os.path.join(_NATIVE_DIR, "vecstore.cpp")
+NATIVE_SRC_DIR = os.path.join(PKG_DIR, "native", "src")
+BUILDER_SRC = os.path.join(NATIVE_SRC_DIR, "builder.cpp")
+VECSTORE_SRC = os.path.join(NATIVE_SRC_DIR, "vecstore.cpp")
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -48,19 +49,24 @@ def _load(name: str, src: str, declare) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def binary_sources(name: str) -> list[str]:
+    """The frontend ``src/<name>.cpp`` and the files it includes
+    (``httpkit.h``, and ``vecstore.cpp`` for the storage frontend): a newer
+    one of any rebuilds ``_build/bin_<name>``."""
+    return [os.path.join(NATIVE_SRC_DIR, f"{name}.cpp"),
+            os.path.join(NATIVE_SRC_DIR, "httpkit.h"), VECSTORE_SRC]
+
+
 def build_binary(name: str) -> str:
-    """Compile the reference's ``hnsw_tpu/native/<name>.cpp`` (a service
-    frontend: ``storage_main`` or ``query_main``) into the executable
-    ``_build/bin_<name>`` if stale, and return its path. The sources
-    include ``httpkit.h`` and ``vecstore.cpp``, so a newer one of either
-    rebuilds too. Nothing is written under ``hnsw_tpu/``."""
-    src = os.path.join(_NATIVE_DIR, f"{name}.cpp")
-    deps = [src, os.path.join(_NATIVE_DIR, "httpkit.h"), VECSTORE_SRC]
+    """Compile ``src/<name>.cpp`` (a service frontend: ``storage_main`` or
+    ``query_main``) into the executable ``_build/bin_<name>`` if stale, and
+    return its path."""
+    deps = binary_sources(name)
 
     def compile_to(tmp: str) -> None:
         cmd = [
             "g++", "-O3", "-march=native", "-std=c++20", "-pthread",
-            "-o", tmp, src,
+            "-o", tmp, deps[0],
         ]
         subprocess.run(cmd, check=True, capture_output=True, text=True)
 

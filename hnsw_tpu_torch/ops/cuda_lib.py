@@ -91,7 +91,7 @@ def load_kernels() -> ctypes.CDLL:
             ("hop_dist_unified_bf16", [P] * 6 + hop),
             ("hop_dist_unified_int8", [P] * 7 + hop),
             ("hop_dist_unified_int4", [P] * 7 + hop),
-            ("hop_dist_inline", [P] * 6 + hop),
+            ("hop_dist_inline", [P] * 7 + hop),
             ("gather_dist_f32", gather),
             ("gather_dist_bf16", gather),
         ):

@@ -546,25 +546,37 @@ def hop_dist_unified(
         raise ValueError(f"query width {q.shape[1]} > table width {table.d_pad}")
     if q.device.type == "cpu":
         return hop_dist_unified_plain(q, table, chosen, space)
+    return _ring_launch(entry, counter, kind, q, tensors, chosen, None, table.m0,
+                        table.d_pad, table.rows, space)
+
+
+def _ring_launch(
+    entry: str, counter: str, kind: str, q: torch.Tensor, tensors: list,
+    chosen: torch.Tensor, order: torch.Tensor | None, m0: int, d_pad: int,
+    rows: int, space: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch a C entry of the node-block ring (csrc/hop_ring.cuh) on CUDA
+    tensors: `tensors` are the table's, in the entry's order; `order` is
+    None or an int32 permutation of the B*E pairs. Checks what the ring's
+    bulk copies need (16-byte sizes and addresses) and raises otherwise."""
     if not q.is_cuda:
-        raise ValueError(f"hop_dist_unified: unsupported device {q.device}")
+        raise ValueError(f"{entry}: unsupported device {q.device}")
 
     from hnsw_tpu_torch.ops.cuda_lib import check, load_kernels
 
     dev = q.device
-    if any(t.device != dev for t in (chosen, *tensors)):
-        raise ValueError("hop_dist_unified: tensors on different devices")
+    if any(t.device != dev for t in (chosen, *tensors, *([] if order is None else [order]))):
+        raise ValueError(f"{entry}: tensors on different devices")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
-        raise ValueError("hop_dist_unified: table must be contiguous and 16-byte aligned")
-    if table.d_pad % 8 or table.d_pad * 4 > 48 * 1024:
-        raise ValueError(f"hop_dist_unified: unsupported d_pad {table.d_pad}")
-    b, e = chosen.shape
-    m0 = table.m0
+        raise ValueError(f"{entry}: table must be contiguous and 16-byte aligned")
+    if d_pad % 8 or d_pad * 4 > 48 * 1024:
+        raise ValueError(f"{entry}: unsupported d_pad {d_pad}")
     if m0 % 4:
         # the ring copies ids, scales and rows in 16-byte multiples
-        raise ValueError(f"hop_dist_unified: {kind} table m0 {m0} is not a multiple of 4")
+        raise ValueError(f"{entry}: {kind} table m0 {m0} is not a multiple of 4")
+    b, e = chosen.shape
     # padded only when narrower than the table: a pad is a copy kernel per call
-    qp = q if q.shape[1] == table.d_pad else F.pad(q, (0, table.d_pad - q.shape[1]))
+    qp = q if q.shape[1] == d_pad else F.pad(q, (0, d_pad - q.shape[1]))
     qp = qp.contiguous()
     if qp.data_ptr() % 16:  # the query row is a bulk copy too
         qp = qp.clone()
@@ -574,10 +586,12 @@ def hop_dist_unified(
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [qp.data_ptr(), *(t.data_ptr() for t in tensors), ch.data_ptr()]
+        if entry == "hop_dist_inline":  # the one entry that takes an order
+            ptrs.append(None if order is None else order.data_ptr())
         rc = getattr(lib, entry)(
-            qp.data_ptr(), *(t.data_ptr() for t in tensors), ch.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            b, e, m0, table.d_pad, table.rows, int(space == "ip"), stream,
+            *ptrs, out_d.data_ptr(), out_i.data_ptr(),
+            b, e, m0, d_pad, rows, int(space == "ip"), stream,
         )
     check(rc, entry)
     setattr(COUNTS, counter, getattr(COUNTS, counter) + 1)
@@ -618,12 +632,16 @@ def hop_dist_inline(
     level0: torch.Tensor,  # [N_pad, m0] int32, the graph's own adjacency
     chosen: torch.Tensor,  # [B, E] int32 nodes to expand
     space: str = "l2",
+    node_order: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Expand `chosen` nodes on the split tier: the m0 neighbor vectors of
     each come from one contiguous block of `nbr_vectors`, their ids from the
     node's row of `level0`. Returns (dists [B, E*m0] f32, ids [B, E*m0]
     int32). Replaces pallas_gather.hop_dist_inline and extract_level0_ids
-    (the TPU kernel returns raw 32-node id tiles that XLA then picks from)."""
+    (the TPU kernel returns raw 32-node id tiles that XLA then picks from).
+    On CUDA tensors it launches the node-block ring with level0 as the
+    payload; `node_order` deals the pairs to the ring sorted by chosen node
+    (pair_order), so the reads of one block are in flight together."""
     _check_space(space)
     if q.dim() != 2 or chosen.dim() != 2 or chosen.shape[0] != q.shape[0]:
         raise ValueError(f"bad shapes q {tuple(q.shape)} chosen {tuple(chosen.shape)}")
@@ -640,36 +658,15 @@ def hop_dist_inline(
         raise ValueError(f"query width {q.shape[1]} > table width {d_pad}")
     if q.device.type == "cpu":
         return hop_dist_inline_plain(q, nbr_vectors, level0, chosen, space)
-    if not q.is_cuda:
-        raise ValueError(f"hop_dist_inline: unsupported device {q.device}")
+    order = pair_order(chosen) if node_order else None
+    return _ring_launch("hop_dist_inline", "hop_dist_inline", "split", q,
+                        [nbr_vectors, level0], chosen, order, m0, d_pad, rows, space)
 
-    from hnsw_tpu_torch.ops.cuda_lib import check, load_kernels
 
-    dev = q.device
-    if any(t.device != dev for t in (chosen, nbr_vectors, level0)):
-        raise ValueError("hop_dist_inline: tensors on different devices")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (nbr_vectors, level0)):
-        raise ValueError("hop_dist_inline: tables must be contiguous and 16-byte aligned")
-    if d_pad % 8 or d_pad * 4 > 48 * 1024:
-        raise ValueError(f"hop_dist_inline: unsupported d_pad {d_pad}")
-    b, e = chosen.shape
-    # padded only when narrower than the table: a pad is a copy kernel per call
-    qp = q if q.shape[1] == d_pad else F.pad(q, (0, d_pad - q.shape[1]))
-    qp = qp.contiguous()
-    ch = chosen.contiguous()
-    out_d = torch.empty((b, e * m0), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, e * m0), dtype=torch.int32, device=dev)
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hop_dist_inline(
-            qp.data_ptr(), nbr_vectors.data_ptr(), level0.data_ptr(), ch.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            b, e, m0, d_pad, rows, int(space == "ip"), stream,
-        )
-    check(rc, "hop_dist_inline")
-    COUNTS.hop_dist_inline += 1
-    return out_d, out_i
+def pair_order(chosen: torch.Tensor) -> torch.Tensor:
+    """The (query, chosen) pairs of `chosen` [B, E], flat index b*E + e, in
+    the order of their chosen node: an int32 permutation of B*E."""
+    return torch.sort(chosen.reshape(-1)).indices.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
-"""The native C++ service frontends built by the port: the reference's
-storage_main.cpp and query_main.cpp, compiled by path with
-hnsw_tpu_torch.native.build_binary into hnsw_tpu_torch/_build/, serving an
-.adj that the port exported; the port's search_cpu on the same graph is the
-reference. The C++ programs are the reference's own, unchanged: their
-endpoints, /info, connection handling and start-up retry are tested in
-tests/test_native_services.py, so this file tests only what the port adds,
-the build and a search round trip over a graph the port exported.
+"""The native C++ service frontends built by the port: its copies of the
+reference's storage_main.cpp and query_main.cpp (hnsw_tpu_torch/native/src/),
+compiled with hnsw_tpu_torch.native.build_binary into
+hnsw_tpu_torch/_build/, serving an .adj that the port exported; the port's
+search_cpu on the same graph is the reference. Apart from the optimized
+mode's fetch cache, repaired in the port's query_main.cpp, the C++ programs
+are the reference's: their endpoints, /info, connection handling and
+start-up retry are tested in tests/test_native_services.py, so this file
+tests what the port adds: the build, a search round trip over a graph the
+port exported, and the optimized mode under concurrent clients.
 
 Every test here starts processes and opens sockets, so all are `slow`."""
 
@@ -14,6 +16,7 @@ import os
 import socket
 import struct
 import subprocess
+import threading
 import time
 import urllib.request
 
@@ -66,11 +69,11 @@ def _post(url, body, timeout=30):
 
 
 def _put_batch(port, x):
-    rec = np.zeros(len(x), dtype=[("id", "<u4"), ("vec", "<f4", (DIM,))])
+    rec = np.zeros(len(x), dtype=[("id", "<u4"), ("vec", "<f4", (x.shape[1],))])
     rec["id"] = np.arange(len(x))
     rec["vec"] = x
     return _post(f"http://127.0.0.1:{port}/vec/put_batch",
-                 struct.pack("<II", len(x), DIM) + rec.tobytes())
+                 struct.pack("<II", len(x), x.shape[1]) + rec.tobytes())
 
 
 def _start(args):
@@ -138,3 +141,58 @@ def test_native_query_search_matches_search_cpu(native_stack, mode):
         assert set(got) == set(l_ref[i][: len(got)].tolist())
         assert j["rss_kb"] > 0
         assert j.get("mode") == ("optimized" if mode == "optimized" else None)
+
+
+@pytest.mark.parametrize("n", [3000, 6000])
+def test_optimized_mode_under_concurrent_clients(tmp_path, n):
+    """8 clients at once against the optimized mode (vectors fetched from
+    the storage service through a 4,096-vector cache): every answer holds
+    search_cpu's ids, and every distance is its label's exact one within
+    1e-5. At n=3000 the reference's copy returned other vectors' distances
+    (a hop's fetch parsed against a list that another request had changed
+    meanwhile); at n=6000 the cache is also cleared mid-search."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(n, DIM)).astype(np.float32)
+    q = x[rng.integers(0, n, 128)] + 0.1 * rng.normal(size=(128, DIM)).astype(np.float32)
+    idx = _serial_index(x, 8, 100)
+    adj = str(tmp_path / "index.adj")
+    idx.export_adj(adj)
+    _, l_ref, _ = idx.search_cpu(q, 10, 100)
+    storage_bin, query_bin = build_binary("storage_main"), build_binary("query_main")
+    procs = []
+    try:
+        s_port = _free_port()
+        procs.append(_start([storage_bin, str(tmp_path / "store.log"), str(s_port)]))
+        _wait_ready(s_port, procs[-1])
+        assert _put_batch(s_port, x) == (200, b"OK")
+        port = _free_port()
+        procs.append(_start([
+            query_bin, "--graph", adj, "--storage", f"http://127.0.0.1:{s_port}",
+            "--port", str(port), "--dim", str(DIM), "--ef", "100", "--optimized", "1"]))
+        _wait_ready(port, procs[-1])
+        answers = [None] * len(q)
+
+        def client(rows):
+            for i in rows:
+                body = json.dumps({"query": q[i].tolist(), "k": 10, "ef": 100}).encode()
+                answers[i] = json.loads(_post(f"http://127.0.0.1:{port}/search", body,
+                                              timeout=120)[1])["results"]
+
+        threads = [threading.Thread(target=client, args=(range(c, len(q), 8),))
+                   for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        _stop(procs)
+    xsq = (x.astype(np.float64) ** 2).sum(-1)
+    for i, res in enumerate(answers):
+        assert res is not None, i
+        got = np.array([r["id"] for r in res])
+        dist = np.array([r["distance"] for r in res])
+        assert len(got) == 10 and set(got.tolist()) == set(l_ref[i].tolist()), (i, got, l_ref[i])
+        qi = q[i].astype(np.float64)
+        exact = ((x[got].astype(np.float64) - qi) ** 2).sum(-1)
+        tol = 1e-5 * exact + 1e-6 * (xsq[got] + qi @ qi)
+        assert (np.abs(dist - exact) <= tol).all(), (i, dist, exact)
