@@ -12,10 +12,8 @@ turns (a, b, ..., b, a) with CUDA events, on the same tensors: warm (one
 `chosen` or `ids` repeated), cold (a fresh one per launch on tables far
 past the 50 MB L2), and row 6 over the launches of one 16,384-node wave of
 chip_smoke.py phase 4 (g)'s bulk build, replayed cold (chip_smoke.WaveProbe
-and replay_wave). Row 6 runs three ways: the parent's kernel, the ring,
-and the ring with its pairs dealt in node order (the sort's time
-included). Prints one line per measurement, the card's name and power
-limit, and a JSON summary as the last line. Needs CUDA.
+and replay_wave). Prints one line per measurement, the card's name and
+power limit, and a JSON summary as the last line. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -32,7 +30,8 @@ import chip_smoke as cs
 
 
 def build_parent(parent_dir: str) -> ctypes.CDLL:
-    """The parent's kernels, compiled from its csrc by this tree's build."""
+    """The parent's kernels, compiled from its csrc by this tree's build and
+    bound with this tree's signatures (the C entries keep PR 2's)."""
     from hnsw_tpu_torch.buildutil import BUILD_DIR
     from hnsw_tpu_torch.ops import cuda_lib
 
@@ -45,44 +44,12 @@ def build_parent(parent_dir: str) -> ctypes.CDLL:
         cuda_lib._compile(path)
     finally:
         cuda_lib.CSRC_DIR, cuda_lib.LOG_PATH = saved
-    lib = ctypes.CDLL(path)
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    hop = [I, I, I, I, L, I, P]
-    for name, args in (("hop_dist_unified_bf16", [P] * 6 + hop),
-                       ("hop_dist_unified_int8", [P] * 7 + hop),
-                       ("hop_dist_unified_int4", [P] * 7 + hop),
-                       ("hop_dist_inline", [P] * 6 + hop),  # no pair order
-                       ("gather_dist_f32", [P, P, P, P, I, I, I, L, I, P])):
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = I
-    return lib
-
-
-def parent_inline(lib):
-    """The parent's split hop, called as gather_kernels.hop_dist_inline."""
-    import torch
-    import torch.nn.functional as F
-
-    def hop(q, nbr, level0, chosen, space="l2"):
-        b, e = chosen.shape
-        rows, m0, d_pad = nbr.shape
-        qp = (q if q.shape[1] == d_pad else F.pad(q, (0, d_pad - q.shape[1]))).contiguous()
-        out_d = torch.empty((b, e * m0), dtype=torch.float32, device=q.device)
-        out_i = torch.empty((b, e * m0), dtype=torch.int32, device=q.device)
-        rc = lib.hop_dist_inline(qp.data_ptr(), nbr.data_ptr(), level0.data_ptr(),
-                                 chosen.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b, e,
-                                 m0, d_pad, rows, int(space == "ip"),
-                                 torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"parent hop_dist_inline: CUDA error {rc}")
-        return out_d, out_i
-
-    return hop
+    return cuda_lib.declare(ctypes.CDLL(path))
 
 
 class Using:
     """Within the block, the wrappers of gather_kernels launch `lib`'s
-    entries (rows 1-5 have the same C entries in both trees)."""
+    entries (the six C entries have the same signatures in both trees)."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -130,71 +97,64 @@ def main(argv) -> int:
     smi = cs.smi_name_power()
     cs.log(f"[ab] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.time()
-    new = load_kernels()
-    old = build_parent(argv[0])
+    libs = {"parent": build_parent(argv[0]), "tree": load_kernels()}
     cs.log(f"[ab] both trees' kernels built in {time.time() - t0:.1f}s")
     gen = torch.Generator(device=dev).manual_seed(11)
     out: dict = {"device": smi}
 
-    def versions(nbr, level0):
-        hop_old = parent_inline(old)
-        return {
-            "parent": lambda q, c: hop_old(q, nbr, level0, c),
-            "ring": lambda q, c: gk.hop_dist_inline(q, nbr, level0, c, node_order=False),
-            "ring+order": lambda q, c: gk.hop_dist_inline(q, nbr, level0, c, node_order=True),
-        }
+    def turns(timer) -> dict:
+        """timer() under each tree's kernels, in turns."""
 
-    # ---- row 6: warm and cold, m0=32, d=128, l2 ----
+        def run(lib):
+            with Using(lib):
+                return timer()
+
+        return in_turns({n: (lambda lib=lib: run(lib)) for n, lib in libs.items()},
+                        lambda g: g())
+
+    def sets_of(b, e, rows):
+        return [torch.randint(0, rows, (b, e), generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(21)]
+
+    # ---- row 6 warm and cold, rows 1, 3 and 4 cold; m0=32, d=128, l2 ----
     m0, d = 32, 128
     for rows in (16384, 262_144):
         t = cs.dev_table(dev, gen, "bf16", rows, m0, d)
         nbr, level0 = t.vecs, t.payload
-        vs = versions(nbr, level0)
         shapes = ((1024, 1), (1024, 2), (8192, 2), (16384, 2)) if rows == 16384 else (
             (1024, 1), (8192, 2), (16384, 2))
         for b, e in shapes:
             q = torch.randn((b, d), generator=gen, device=dev)
-            sets = [torch.randint(0, rows, (b, e), generator=gen, device=dev, dtype=torch.int32)
-                    for _ in range(21)]
-            ref_d, ref_i = vs["parent"](q, sets[0])
-            for name, fn in vs.items():
-                dk, ik = fn(q, sets[0])
-                if not (torch.equal(ik, ref_i) and torch.allclose(dk, ref_d, rtol=1e-5, atol=1e-4)):
-                    cs.fail(f"row 6 {name} B={b} E={e} differs from the parent's kernel")
+            sets = sets_of(b, e, rows)
+            with Using(libs["parent"]):
+                ref_d, ref_i = gk.hop_dist_inline(q, nbr, level0, sets[0])
+            dk, ik = gk.hop_dist_inline(q, nbr, level0, sets[0])
             du, iu = gk.hop_dist_unified(q, t, sets[0])
-            dr, ir = vs["ring+order"](q, sets[0])
-            if not (torch.equal(ir, iu) and torch.equal(dr.view(torch.int32),
+            if not (torch.equal(ik, ref_i) and torch.allclose(dk, ref_d, rtol=1e-5, atol=1e-4)):
+                cs.fail(f"row 6 B={b} E={e} differs from the parent's kernel")
+            if not (torch.equal(ik, iu) and torch.equal(dk.view(torch.int32),
                                                         du.view(torch.int32))):
                 cs.fail(f"row 6 B={b} E={e} is not row 1 bit for bit")
-            warm = in_turns({n: (lambda f=f: f(q, sets[0])) for n, f in vs.items()}, cs.cuda_ms)
             key = f"row6_b{b}_e{e}_{rows}"
-            out[key + "_warm"] = warm
+            out[key + "_warm"] = warm = turns(
+                lambda: cs.cuda_ms(lambda: gk.hop_dist_inline(q, nbr, level0, sets[0])))
             cs.log(f"[ab] row 6 warm B={b} E={e} on {rows} blocks: {fmt(warm)}")
             if rows > 16384:
-                cold = in_turns({n: (lambda f=f: cs.cold_ms(lambda c: f(q, c), sets))
-                                 for n, f in vs.items()}, lambda g: g())
-                out[key + "_cold"] = cold
+                out[key + "_cold"] = cold = turns(
+                    lambda: cs.cold_ms(lambda c: gk.hop_dist_inline(q, nbr, level0, c), sets))
                 cs.log(f"[ab] row 6 cold B={b} E={e} on {rows} blocks: {fmt(cold)}")
-        # rows 1, 3 and 4 (the ring, changed only by its pair order) cold
         if rows > 16384:
             tables = {"bf16": t, "int8": cs.dev_table(dev, gen, "int8", rows, m0, d),
                       "int4": cs.dev_table(dev, gen, "int4", rows, m0, d)}
             for tier, table in tables.items():
                 for b, e in ((1024, 1), (8192, 2)):
                     q = torch.randn((b, d), generator=gen, device=dev)
-                    sets = [torch.randint(0, rows, (b, e), generator=gen, device=dev,
-                                          dtype=torch.int32) for _ in range(21)]
-
-                    def timed(lib, table=table, q=q, sets=sets):
-                        with Using(lib):
-                            return cs.cold_ms(lambda c: gk.hop_dist_unified(q, table, c), sets)
-
-                    res = in_turns({"parent": lambda: timed(old), "tree": lambda: timed(new)},
-                                   lambda g: g())
-                    out[f"{tier}_b{b}_e{e}_cold"] = res
+                    sets = sets_of(b, e, rows)
+                    out[f"{tier}_b{b}_e{e}_cold"] = res = turns(
+                        lambda: cs.cold_ms(lambda c: gk.hop_dist_unified(q, table, c), sets))
                     cs.log(f"[ab] {tier} hop cold B={b} E={e} on {rows} blocks: {fmt(res)}")
             del tables
-        del t, nbr, level0, vs
+        del t, nbr, level0
         torch.cuda.empty_cache()
 
     # ---- row 2: warm (200,000 rows) and cold (2,000,000 rows), B=1024 K=40 ----
@@ -202,20 +162,15 @@ def main(argv) -> int:
     q = torch.randn((b, d), generator=gen, device=dev)
     for rows, mode in ((200_000, "warm"), (2_000_000, "cold")):
         table = torch.randn((rows, d), generator=gen, device=dev)
-        sets = [torch.randint(0, rows, (b, kk), generator=gen, device=dev, dtype=torch.int32)
-                for _ in range(21)]
+        sets = sets_of(b, kk, rows)
         dk = gk.gather_dist_rows(q, table, sets[0])
         dp = gk.gather_dist_rows_plain(q, table, sets[0])
         if bool(cs.gather_bad(q, table, sets[0], dk, dp).any()):
             cs.fail(f"row 2 ({mode}) differs from its plain version")
-
-        def timed(lib, table=table, sets=sets, mode=mode):
-            with Using(lib):
-                if mode == "warm":
-                    return cs.cuda_ms(lambda: gk.gather_dist_rows(q, table, sets[0]))
-                return cs.cold_ms(lambda i: gk.gather_dist_rows(q, table, i), sets)
-
-        res = in_turns({"parent": lambda: timed(old), "tree": lambda: timed(new)}, lambda g: g())
+        if mode == "warm":
+            res = turns(lambda: cs.cuda_ms(lambda: gk.gather_dist_rows(q, table, sets[0])))
+        else:
+            res = turns(lambda: cs.cold_ms(lambda i: gk.gather_dist_rows(q, table, i), sets))
         out[f"row2_{mode}"] = res
         cs.log(f"[ab] row 2 {mode} B={b} K={kk} d={d} on {rows} rows: {fmt(res)}")
         del table
@@ -227,18 +182,8 @@ def main(argv) -> int:
     with probe:
         bulk_build(x, space="l2", m=cs.M, ef_construction=cs.EF_C, device=dev)
     shares = [c.unique().numel() / c.numel() for *_, c, _ in probe.kept]
-    hop_old = parent_inline(old)
-    vs = {"parent": hop_old,
-          "ring": lambda *a: gk.hop_dist_inline(*a, node_order=False),
-          "ring+order": lambda *a: gk.hop_dist_inline(*a, node_order=True)}
-    reps = {}
-
-    def replay(name, fn):
-        reps.setdefault(name, []).append(cs.replay_wave(dev, probe.kept, fn))
-        return reps[name][-1]["ms"]
-
-    res = in_turns({n: (lambda n=n, f=f: replay(n, f)) for n, f in vs.items()}, lambda g: g())
-    rep = reps["parent"][0]
+    rep = cs.replay_wave(dev, probe.kept)
+    res = turns(lambda: cs.replay_wave(dev, probe.kept)["ms"])
     out["wave"] = {"ms": res, "launches": rep["launches"], "bound_ms": rep["bound_ms"],
                    "read_bound_ms": rep["read_bound_ms"],
                    "distinct_median": float(np.median(shares))}

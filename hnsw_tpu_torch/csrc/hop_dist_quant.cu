@@ -34,14 +34,14 @@ extern "C" int hop_dist_unified_int8(const void* q, const void* codes, const voi
                                      const void* payload, const void* chosen, void* out_d,
                                      void* out_ids, int B, int E, int m0, int d_pad,
                                      long long R, int ip, void* stream) {
-  return hop_ring::launch<hop_ring::kInt8>(q, codes, scales, payload, chosen, nullptr, out_d,
-                                           out_ids, B, E, m0, d_pad, R, ip, stream);
+  return hop_ring::launch<hop_ring::kInt8>(q, codes, scales, payload, chosen, out_d, out_ids, B,
+                                           E, m0, d_pad, R, ip, stream);
 }
 
 extern "C" int hop_dist_unified_int4(const void* q, const void* codes, const void* scales,
                                      const void* payload, const void* chosen, void* out_d,
                                      void* out_ids, int B, int E, int m0, int d_pad,
                                      long long R, int ip, void* stream) {
-  return hop_ring::launch<hop_ring::kInt4>(q, codes, scales, payload, chosen, nullptr, out_d,
-                                           out_ids, B, E, m0, d_pad, R, ip, stream);
+  return hop_ring::launch<hop_ring::kInt4>(q, codes, scales, payload, chosen, out_d, out_ids, B,
+                                           E, m0, d_pad, R, ip, stream);
 }

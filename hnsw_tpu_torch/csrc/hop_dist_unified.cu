@@ -33,6 +33,6 @@ extern "C" int hop_dist_unified_bf16(const void* q, const void* vecs, const void
                                      const void* chosen, void* out_d, void* out_ids, int B,
                                      int E, int m0, int d_pad, long long R, int ip,
                                      void* stream) {
-  return hop_ring::launch<hop_ring::kBf16>(q, vecs, nullptr, payload, chosen, nullptr, out_d,
-                                           out_ids, B, E, m0, d_pad, R, ip, stream);
+  return hop_ring::launch<hop_ring::kBf16>(q, vecs, nullptr, payload, chosen, out_d, out_ids, B,
+                                           E, m0, d_pad, R, ip, stream);
 }

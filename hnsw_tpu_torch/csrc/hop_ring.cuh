@@ -1,11 +1,12 @@
 // The node-block ring: the unified hop kernels of the bf16, int8 and int4
 // tiers (hop_dist_unified.cu, hop_dist_quant.cu) and the split tier's hop
-// (hop_dist_inline.cu) for sm_90a.
+// (hop_dist_inline.cu: bf16 rows, the graph's level0 as the payload) for
+// sm_90a.
 //
 // Replaces: hnsw_tpu/ops/pallas_gather.py, hop_dist_unified /
 // _hop_dist_unified_kernel on bf16 rows, with int8=True and with int4=True
 // (the nibble unpack :717-723, the dequant :724-735), and hop_dist_inline /
-// _hop_dist_kernel (bf16 rows, the payload the graph's level0). For each query b and
+// _hop_dist_kernel with extract_level0_ids. For each query b and
 // each of its E chosen nodes c = chosen[b, e] it reads the node's block of
 // m0 neighbor rows and their m0 payload ids (and, for int8 and int4, the m0
 // dequant scales) and writes, with x_i the bf16 value widened to f32 or
@@ -28,9 +29,7 @@
 // Design: a persistent grid of blocks, each a shared-memory ring of S stages.
 // The unit of work is a piece: one (query, chosen) pair's block, or a run of
 // whole rows of it when the block is larger than a stage. Pieces are
-// numbered with e fastest and dealt to the blocks round-robin; with an
-// `order` (a permutation of the B*E pairs) the i-th pair dealt is pair
-// order[i], and each pair's distances and ids still go to its own place. The producer
+// numbered with e fastest and dealt to the blocks round-robin. The producer
 // warp's lane l owns stage l: for each of its pieces it reads `chosen` one
 // piece ahead, waits for the stage's "empty" mbarrier, arms the "full"
 // mbarrier with the stage's byte count (expect_tx) and issues TMA 1-D bulk
@@ -71,7 +70,7 @@ constexpr int kMinBlocks = 4;                        // per SM: <= 56 registers 
 constexpr int kMaxStages = 8;
 constexpr int kStageTarget = 32 * 1024;  // bytes of one stage, at most (but one piece)
 constexpr int kRingTarget = 40 * 1024;   // bytes of one block's ring, about
-constexpr int kHeaderBytes = 256;  // 2 * kMaxStages mbarriers, kMaxStages flags and pairs
+constexpr int kHeaderBytes = 256;        // 2 * kMaxStages mbarriers + kMaxStages flags
 
 enum Kind { kBf16 = 0, kInt8 = 1, kInt4 = 2 };
 
@@ -231,7 +230,6 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
                      const float* __restrict__ scales,        // [R, m0] (int8, int4) or null
                      const int32_t* __restrict__ payload,     // [R, m0]
                      const int32_t* __restrict__ chosen,      // [B, E]
-                     const int32_t* __restrict__ order,       // [B*E] or null
                      float* __restrict__ out_d,               // [B, E*m0]
                      int32_t* __restrict__ out_ids,           // [B, E*m0]
                      const Shape sh, const long long R) {
@@ -239,7 +237,6 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   volatile int* valid = reinterpret_cast<volatile int*>(empty + kMaxStages);
-  volatile int* pair = valid + kMaxStages;  // the (query, chosen) pair of each stage
   unsigned char* ring = smem + kHeaderBytes;
 
   const int S = sh.stages;
@@ -263,27 +260,22 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
     // it, each lane on its own: nothing here needs the warp in step, and the
     // completion a lane waits for comes from the consumer warps.
     if (lane >= S) return;
-    auto pair_of = [&](int p) -> int {  // p < n_pieces
-      const int i = sh.pieces == 1 ? p : p / sh.pieces;
-      return order ? __ldg(order + i) : i;
+    auto node_of = [&](int p) -> int {
+      return p < n_pieces ? __ldg(chosen + (sh.pieces == 1 ? p : p / sh.pieces)) : -1;
     };
     unsigned char* st = ring + (size_t)lane * sh.stage_bytes;
     uint64_t* full_l = full + lane;
     uint32_t phase = 1;  // of the "empty" barrier: the ring starts empty
     int p = blockIdx.x + lane * step;
-    int u = p < n_pieces ? pair_of(p) : 0;
-    int node = p < n_pieces ? __ldg(chosen + u) : -1;
+    int node = node_of(p);
     for (; p < n_pieces; p += S * step, phase ^= 1) {
-      // read one piece ahead
-      const int p_next = p + S * step;
-      const int u_next = p_next < n_pieces ? pair_of(p_next) : 0;
-      const int next = p_next < n_pieces ? __ldg(chosen + u_next) : -1;
+      const int next = node_of(p + S * step);  // read one piece ahead
       mbar_wait(empty + lane, phase);
       const bool ok = node >= 0 && node < R;
       valid[lane] = ok;
-      pair[lane] = u;
       if (ok) {
-        const int row0 = (p % sh.pieces) * sh.rps;
+        const int u = sh.pieces == 1 ? p : p / sh.pieces;
+        const int row0 = (p - u * sh.pieces) * sh.rps;
         const int nrows = min(sh.rps, sh.m0 - row0);
         const int b = sh.E == 1 ? u : u / sh.E;
         const long long blk = (long long)node * sh.m0;
@@ -299,7 +291,6 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
       } else {
         mbar_arrive(full_l);
       }
-      u = u_next;
       node = next;
     }
     return;
@@ -314,8 +305,8 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
   uint32_t phase = 0;  // of the "full" barriers
   for (int p = blockIdx.x; p < n_pieces; p += step) {
     mbar_wait(full + s, phase);
-    const int u = pair[s];
-    const int row0 = (p % sh.pieces) * sh.rps;
+    const int u = sh.pieces == 1 ? p : p / sh.pieces;
+    const int row0 = (p - u * sh.pieces) * sh.rps;
     const int nrows = min(sh.rps, sh.m0 - row0);
     const bool ok = valid[s];
     const unsigned char* st = ring + (size_t)s * sh.stage_bytes;
@@ -370,12 +361,11 @@ hop_dist_ring_kernel(const float* __restrict__ q,            // [B, d_pad]
 }
 
 // Launch on `stream`; returns cudaGetLastError() (or the error of a failed
-// query of the device). `scales` is null for bf16; `order` is null, or a
-// permutation of the B*E pairs (the order the pieces are dealt in).
+// query of the device). `scales` is null for bf16.
 template <Kind kKind>
 int launch(const void* q, const void* rows, const void* scales, const void* payload,
-           const void* chosen, const void* order, void* out_d, void* out_ids, int B, int E,
-           int m0, int d_pad, long long R, int ip, void* stream) {
+           const void* chosen, void* out_d, void* out_ids, int B, int E, int m0, int d_pad,
+           long long R, int ip, void* stream) {
   if (B <= 0 || E <= 0 || m0 <= 0) return static_cast<int>(cudaGetLastError());
   const Shape sh = make_shape(B, E, m0, d_pad, kKind);
   const size_t smem = kHeaderBytes + (size_t)sh.stages * sh.stage_bytes;
@@ -406,8 +396,7 @@ int launch(const void* q, const void* rows, const void* scales, const void* payl
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const unsigned char*>(rows),
       static_cast<const float*>(scales), static_cast<const int32_t*>(payload),
-      static_cast<const int32_t*>(chosen), static_cast<const int32_t*>(order),
-      static_cast<float*>(out_d),
+      static_cast<const int32_t*>(chosen), static_cast<float*>(out_d),
       static_cast<int32_t*>(out_ids), sh, R);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,11 +20,12 @@
   chosen nodes, read from a unified table of any tier
   (csrc/hop_dist_unified.cu, csrc/hop_dist_quant.cu; the three tiers share
   the node-block ring of csrc/hop_ring.cuh).
-- ``hop_dist_inline``: the same on the split tier (csrc/hop_dist_inline.cu).
+- ``hop_dist_inline``: the same on the split tier, on the same ring with
+  the graph's level0 as the payload (csrc/hop_dist_inline.cu).
 - ``gather_dist_rows``: distances from each query to K rows of the f32 or
   bf16 vector table, the exact rescore (csrc/gather_dist.cu,
-  csrc/gather_dist_bf16.cu: every row of a query in flight at once where
-  d % 8 == 0, a warp per row at other widths).
+  csrc/gather_dist_bf16.cu: every row of a query in flight at once where a
+  row is a whole number of 16-byte chunks, a warp per row otherwise).
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises. ``COUNTS`` records every
@@ -546,26 +547,25 @@ def hop_dist_unified(
         raise ValueError(f"query width {q.shape[1]} > table width {table.d_pad}")
     if q.device.type == "cpu":
         return hop_dist_unified_plain(q, table, chosen, space)
-    return _ring_launch(entry, counter, kind, q, tensors, chosen, None, table.m0,
-                        table.d_pad, table.rows, space)
+    return _ring_launch(entry, counter, kind, q, tensors, chosen, table.m0, table.d_pad,
+                        table.rows, space)
 
 
 def _ring_launch(
     entry: str, counter: str, kind: str, q: torch.Tensor, tensors: list,
-    chosen: torch.Tensor, order: torch.Tensor | None, m0: int, d_pad: int,
-    rows: int, space: str,
+    chosen: torch.Tensor, m0: int, d_pad: int, rows: int, space: str,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch a C entry of the node-block ring (csrc/hop_ring.cuh) on CUDA
-    tensors: `tensors` are the table's, in the entry's order; `order` is
-    None or an int32 permutation of the B*E pairs. Checks what the ring's
-    bulk copies need (16-byte sizes and addresses) and raises otherwise."""
+    tensors (`tensors`: the table's, in the entry's order). Checks what the
+    ring's bulk copies need (16-byte sizes and addresses) and raises
+    otherwise."""
     if not q.is_cuda:
         raise ValueError(f"{entry}: unsupported device {q.device}")
 
     from hnsw_tpu_torch.ops.cuda_lib import check, load_kernels
 
     dev = q.device
-    if any(t.device != dev for t in (chosen, *tensors, *([] if order is None else [order]))):
+    if any(t.device != dev for t in (chosen, *tensors)):
         raise ValueError(f"{entry}: tensors on different devices")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError(f"{entry}: table must be contiguous and 16-byte aligned")
@@ -586,11 +586,9 @@ def _ring_launch(
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [qp.data_ptr(), *(t.data_ptr() for t in tensors), ch.data_ptr()]
-        if entry == "hop_dist_inline":  # the one entry that takes an order
-            ptrs.append(None if order is None else order.data_ptr())
         rc = getattr(lib, entry)(
-            *ptrs, out_d.data_ptr(), out_i.data_ptr(),
+            qp.data_ptr(), *(t.data_ptr() for t in tensors), ch.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
             b, e, m0, d_pad, rows, int(space == "ip"), stream,
         )
     check(rc, entry)
@@ -632,7 +630,6 @@ def hop_dist_inline(
     level0: torch.Tensor,  # [N_pad, m0] int32, the graph's own adjacency
     chosen: torch.Tensor,  # [B, E] int32 nodes to expand
     space: str = "l2",
-    node_order: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Expand `chosen` nodes on the split tier: the m0 neighbor vectors of
     each come from one contiguous block of `nbr_vectors`, their ids from the
@@ -640,8 +637,7 @@ def hop_dist_inline(
     int32). Replaces pallas_gather.hop_dist_inline and extract_level0_ids
     (the TPU kernel returns raw 32-node id tiles that XLA then picks from).
     On CUDA tensors it launches the node-block ring with level0 as the
-    payload; `node_order` deals the pairs to the ring sorted by chosen node
-    (pair_order), so the reads of one block are in flight together."""
+    payload (csrc/hop_dist_inline.cu)."""
     _check_space(space)
     if q.dim() != 2 or chosen.dim() != 2 or chosen.shape[0] != q.shape[0]:
         raise ValueError(f"bad shapes q {tuple(q.shape)} chosen {tuple(chosen.shape)}")
@@ -658,15 +654,8 @@ def hop_dist_inline(
         raise ValueError(f"query width {q.shape[1]} > table width {d_pad}")
     if q.device.type == "cpu":
         return hop_dist_inline_plain(q, nbr_vectors, level0, chosen, space)
-    order = pair_order(chosen) if node_order else None
     return _ring_launch("hop_dist_inline", "hop_dist_inline", "split", q,
-                        [nbr_vectors, level0], chosen, order, m0, d_pad, rows, space)
-
-
-def pair_order(chosen: torch.Tensor) -> torch.Tensor:
-    """The (query, chosen) pairs of `chosen` [B, E], flat index b*E + e, in
-    the order of their chosen node: an int32 permutation of B*E."""
-    return torch.sort(chosen.reshape(-1)).indices.to(torch.int32)
+                        [nbr_vectors, level0], chosen, m0, d_pad, rows, space)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,8 @@
 """The split-tier hop (row 6) on the node-block ring and the f32 row gather
 (row 2) with every row of a query in flight, against their plain PyTorch
-versions. The pair order the split hop deals its pieces in is plain torch
-and is tested here on the CPU; the kernels run only on a card (`cuda`
-marker). No JAX: the plain versions are the reference, and their parity
-with the JAX package is tested in test_torch_split.py and
-test_torch_kernels.py."""
+versions, on a card only (`cuda` marker: the kernels have no CPU mode). No
+JAX: the plain versions are the reference here, and their parity with the
+JAX package is tested in test_torch_split.py and test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -13,18 +11,6 @@ import torch
 from hnsw_tpu_torch.ops import gather_kernels as gk
 
 torch.set_num_threads(1)
-
-
-@pytest.mark.parametrize("b,e,rows", [(16, 2, 10), (64, 1, 500), (33, 4, 3)])
-def test_pair_order_sorts_pairs_by_node(b, e, rows):
-    rng = np.random.default_rng(b + e)
-    chosen = torch.from_numpy(rng.integers(0, rows, (b, e)).astype(np.int32))
-    chosen[0, 0] = rows - 1  # the sentinel row, as a finished beam picks it
-    order = gk.pair_order(chosen)
-    assert order.dtype == torch.int32 and order.shape == (b * e,)
-    assert torch.equal(torch.sort(order).values, torch.arange(b * e, dtype=torch.int32))
-    nodes = chosen.reshape(-1)[order.long()]
-    assert bool((nodes[1:] >= nodes[:-1]).all())
 
 
 # ---------------------------------------------------------------------------
@@ -54,19 +40,17 @@ def _split_case(dev, m0, d, b, e, rows=700, seed=5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("node_order", [False, True])
 @pytest.mark.parametrize("space", ["l2", "ip"])
 @pytest.mark.parametrize("d", [96, 128])
 @pytest.mark.parametrize("m0,e", [(32, 2), (64, 1)])
-def test_split_hop_ring_matches_plain_and_row1_on_cuda(cuda_device, m0, e, d, space,
-                                                       node_order):
+def test_split_hop_ring_matches_plain_and_row1_on_cuda(cuda_device, m0, e, d, space):
     """Row 6 against its plain version (ids equal, distances rtol 1e-5 / atol
     1e-4, NaN and -1 exactly where a chosen id is out of range) and against
     row 1 on the same tensors, bit for bit."""
     q, nbr, level0, chosen = _split_case(cuda_device, m0, d, 256, e)
     rows = nbr.shape[0]
     gk.COUNTS.reset()
-    dk, ik = gk.hop_dist_inline(q, nbr, level0, chosen, space, node_order=node_order)
+    dk, ik = gk.hop_dist_inline(q, nbr, level0, chosen, space)
     assert gk.COUNTS.hop_dist_inline == 1 and gk.COUNTS.plain_on_cuda == 0
     ok = (chosen >= 0) & (chosen < rows)
     dp, ip_ = gk.hop_dist_inline_plain(q, nbr, level0, torch.where(ok, chosen, 0), space)
