@@ -36,12 +36,14 @@
 // producer lane per stage, a persistent grid. Its distances and ids equal
 // the unified bf16 hop's bit for bit on the same tensors. The ring needs
 // m0 % 4 == 0 and 16-byte aligned tensors and query rows (the wrapper
-// checks them). On an H100, over the 112 launches of one 16,384-node wave of
-// a 100k build replayed cold, the ring took 10.1 ms against the first
-// design's 11.6 (a block of 256 threads per query, 8 KB in flight through
-// registers); dealing the pairs to the ring sorted by chosen node, so that
-// the reads of one block are in flight together, took 16.2 ms: the sort
-// costs ~55 us a launch, and without it the kernel gained ~2%.
+// checks them). On an H100 (700 W), over the 112 launches of one
+// 16,384-node wave of a 100k build replayed cold, this entry took 9.479 ms
+// against the first design's 11.604 (a block of 256 threads per query, 8 KB
+// in flight through registers), in turns (chip_kernel_ab.py). An earlier
+// ring that dealt the pairs sorted by chosen node, so that the reads of one
+// block are in flight together, took 16.2 ms there against 10.1 for the
+// ring it was built on: the sort costs ~55 us a launch, and without it the
+// kernel gained ~2%.
 
 #include "hop_ring.cuh"
 
