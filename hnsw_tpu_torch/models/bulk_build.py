@@ -331,7 +331,9 @@ def bulk_build(
     Returns the HNSWIndex (host engine fully populated: incremental
     insert/update/delete and persistence all work afterwards). Its
     `wave_log` lists, per wave, the node count, the tier, the sync mode and
-    the seconds of the sync, search, select and link stages.
+    the seconds of the sync, search, select and link stages;
+    `upper_phase_s` holds the upper phase's wall seconds, up to the card's
+    end of the work (None when the build resumed past it).
 
     `checkpoint`: path prefix for periodic recovery saves (at a wave
     boundary once `checkpoint_every_s` of build work has elapsed since the
@@ -393,6 +395,7 @@ def bulk_build(
             )
             b = idx._builder
             resume_pos, resume_wave = st["pos"], st["wave"]
+            upper_phase_s = None  # the saved build ran it
             if verbose:
                 print(f"  resume: wave cursor pos={resume_pos} of {len(lo)}", flush=True)
         elif verbose:
@@ -425,8 +428,11 @@ def bulk_build(
             # host-insert the hierarchy seed (small: ~N/M of the data)
             for i in hi:
                 b.add_with_level(data[i], int(labels[i]), int(levels[i]))
+        if idx.device.type == "cuda":
+            torch.cuda.synchronize(idx.device)
+        upper_phase_s = time.time() - t0
         if verbose:
-            print(f"  upper phase: {time.time() - t0:.1f}s", flush=True)
+            print(f"  upper phase: {upper_phase_s:.1f}s", flush=True)
 
         # 2) register level-0 nodes unlinked (so ALL vectors exist now: the
         # device vector table uploads once, and per wave only the touched
@@ -491,6 +497,7 @@ def bulk_build(
         idx.unified_max_bytes = idx._unified_budget()
         idx.upper_inline = False
     idx.split_max_bytes = split_budget
+    idx.upper_phase_s = upper_phase_s
     idx.wave_log = []
 
     def wave_link(rows, ids):

@@ -18,6 +18,7 @@ the same sync is full; on any other error the next one is.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from hnsw_tpu_torch.core.spaces import Space, get_space
 from hnsw_tpu_torch.models.bruteforce import resolve_device
 from hnsw_tpu_torch.native.hnsw_builder import NativeHNSWBuilder
 from hnsw_tpu_torch.ops.gather_kernels import (
+    COUNTS,
     build_inline_tables,
     gather_dist_rows,
     inline_rows,
@@ -43,6 +45,7 @@ from hnsw_tpu_torch.ops.gather_kernels import (
 )
 from hnsw_tpu_torch.ops.topk import bruteforce_topk, topk_smallest
 from hnsw_tpu_torch.ops.traversal import SearchResults, search_batch
+from hnsw_tpu_torch.utils.trace import span
 
 # Share of the card's free memory the unified tables may take; the rest is
 # left for the search's working set ([B, ef] beams, [B, EM, ef] dedup masks).
@@ -289,6 +292,8 @@ class HNSWIndex:
         self._last_sync_mode: str | None = None
         # why the last dirty sync was not a delta (None when it was)
         self._last_sync_refusal: str | None = None
+        # wall seconds of the last rebuild_device_tables
+        self.last_sync_s: float | None = None
 
     # -- construction --------------------------------------------------------
 
@@ -592,13 +597,20 @@ class HNSWIndex:
         """Drop and rebuild every device tensor, optionally with a new table
         budget, which is how a caller chooses the tier: a budget between two
         tiers' bytes (ops.gather_kernels.tier_bytes) serves the smaller. The
-        old tables are released first, so peak memory holds one set."""
+        old tables are released first, so peak memory holds one set.
+        `last_sync_s` keeps the call's wall seconds, up to the card's end of
+        the work."""
+        t0 = time.perf_counter()
         if unified_max_bytes is not None:
             self.unified_max_bytes = unified_max_bytes
         self._device = None
         self._landmark_cache = None  # it holds the old state
         self._dirty = True
-        return self._sync_device()
+        st = self._sync_device()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_sync_s = time.perf_counter() - t0
+        return st
 
     @property
     def device_graph(self):
@@ -644,95 +656,113 @@ class HNSWIndex:
         `filter_labels`: bool mask over external labels, shared [L] or
         per-query [B, L]. Deleted elements are always excluded.
         `entry_seeds` / `seed_pool`: landmark-seeded entry, shorthand for
-        `SearchParams(entry_seeds=, seed_pool=)` when no `params` is given."""
+        `SearchParams(entry_seeds=, seed_pool=)` when no `params` is given.
+        `last_metrics` keeps the call's per-query hops, distance
+        computations and last improving iteration on the host: zeros unless
+        `params.collect_metrics`."""
         if params is None:
             params = SearchParams(k=k, ef=max(ef, k), entry_seeds=entry_seeds,
                                   seed_pool=seed_pool)
-        st = self._sync_device()
-        dg, x, sq = st.graph, st.vectors, st.sq_norms
-        labels_np = st.labels
-        q_np = self.space.preprocess(queries)
-        b0 = q_np.shape[0]
-        q = torch.from_numpy(np.ascontiguousarray(q_np)).to(self.device)
+        # the hnsw.search.* spans tile the call (utils/trace.py)
+        with span("hnsw.search"):
+            return self._search(queries, params, filter_labels, entry_ids)
 
-        eligible = None
-        if st.deleted.any() or filter_labels is not None:
-            ok = ~st.deleted
-            if filter_labels is not None:
-                fl = np.asarray(filter_labels, dtype=bool)
-                valid = labels_np >= 0
-                if fl.ndim == 2:
-                    # per-query masks: label-space rows -> node-space rows
-                    if fl.shape[0] != b0:
-                        raise ValueError(
-                            f"filter_labels rows {fl.shape[0]} != batch {b0}"
-                        )
-                    allow = np.zeros((b0, ok.shape[0]), dtype=bool)
-                    allow[:, valid] = fl[:, labels_np[valid]]
-                    ok = ok[None, :] & allow
-                else:
-                    allow = np.zeros_like(ok)
-                    allow[valid] = fl[labels_np[valid]]
-                    ok = ok & allow
-            eligible = torch.from_numpy(ok).to(self.device)
+    def _search(self, queries, params, filter_labels, entry_ids):
+        with span("hnsw.search.h2d"):
+            st = self._sync_device()
+            dg, x, sq = st.graph, st.vectors, st.sq_norms
+            labels_np = st.labels
+            q_np = self.space.preprocess(queries)
+            b0 = q_np.shape[0]
+            q = torch.from_numpy(np.ascontiguousarray(q_np)).to(self.device)
 
-        m_res = params.rescore
-        if m_res is None:
-            m_res = auto_rescore(st.tier, self.space.exact_i8, params.k)
-        m_res = min(m_res, params.ef)
-        # the rescore re-ranks the top m_res beam candidates, so the search
-        # must return that many
-        k_search = max(params.k, m_res) if m_res >= params.k else params.k
-        seed_kwargs = {}
-        if params.entry_seeds > 0 and entry_ids is None and dg.max_level > 0:
-            lm = self._landmark_arrays(pool_extra=params.seed_pool)
-            if lm is not None:
-                lv, li, lsq = lm
-                s = min(params.entry_seeds, int(li.shape[0]),
-                        max(params.ef, k_search))
-                sd, si = bruteforce_topk(q, lv, s, self.space.name, x_sq_norms=lsq)
-                seed_kwargs = {"seed_ids": li[si], "seed_dists": sd}
-        res = search_batch(
-            x,
-            dg,
-            q,
-            k=k_search,
-            ef=max(params.ef, k_search),
-            space=self.space.name,
-            sq_norms=sq,
-            eligible=eligible,
-            entry_ids=None if entry_ids is None else torch.from_numpy(
-                np.asarray(entry_ids).astype(np.int32)
-            ).to(self.device),
-            **inline_search_kwargs(st),
-            expand=params.expand,
-            max_iters=params.max_iters,
-            collect_metrics=params.collect_metrics,
-            stop_patience=params.stop_patience,
-            stop_frontier=params.stop_frontier,
-            # the rank only means something under a frontier stop: the JAX
-            # search ignores it without one, search_batch raises
-            frontier_rank=params.frontier_rank if params.stop_frontier > 0 else 0,
-            stop_fn=params.stop_fn,
-            **seed_kwargs,
-        )
-        if m_res >= params.k and m_res > 0:
-            rd, ri = _rescore_topk(
-                q, x, res.ids, res.dists, k=params.k, m=m_res,
+            eligible = None
+            if st.deleted.any() or filter_labels is not None:
+                ok = ~st.deleted
+                if filter_labels is not None:
+                    fl = np.asarray(filter_labels, dtype=bool)
+                    valid = labels_np >= 0
+                    if fl.ndim == 2:
+                        # per-query masks: label-space rows -> node-space rows
+                        if fl.shape[0] != b0:
+                            raise ValueError(
+                                f"filter_labels rows {fl.shape[0]} != batch {b0}"
+                            )
+                        allow = np.zeros((b0, ok.shape[0]), dtype=bool)
+                        allow[:, valid] = fl[:, labels_np[valid]]
+                        ok = ok[None, :] & allow
+                    else:
+                        allow = np.zeros_like(ok)
+                        allow[valid] = fl[labels_np[valid]]
+                        ok = ok & allow
+                eligible = torch.from_numpy(ok).to(self.device)
+
+        with span("hnsw.search.seeds"):
+            m_res = params.rescore
+            if m_res is None:
+                m_res = auto_rescore(st.tier, self.space.exact_i8, params.k)
+            m_res = min(m_res, params.ef)
+            # the rescore re-ranks the top m_res beam candidates, so the
+            # search must return that many
+            k_search = max(params.k, m_res) if m_res >= params.k else params.k
+            seed_kwargs = {}
+            if params.entry_seeds > 0 and entry_ids is None and dg.max_level > 0:
+                lm = self._landmark_arrays(pool_extra=params.seed_pool)
+                if lm is not None:
+                    lv, li, lsq = lm
+                    s = min(params.entry_seeds, int(li.shape[0]),
+                            max(params.ef, k_search))
+                    sd, si = bruteforce_topk(q, lv, s, self.space.name, x_sq_norms=lsq)
+                    seed_kwargs = {"seed_ids": li[si], "seed_dists": sd}
+
+        with span("hnsw.search.beam"):
+            res = search_batch(
+                x,
+                dg,
+                q,
+                k=k_search,
+                ef=max(params.ef, k_search),
                 space=self.space.name,
+                sq_norms=sq,
+                eligible=eligible,
+                entry_ids=None if entry_ids is None else torch.from_numpy(
+                    np.asarray(entry_ids).astype(np.int32)
+                ).to(self.device),
+                **inline_search_kwargs(st),
+                expand=params.expand,
+                max_iters=params.max_iters,
+                collect_metrics=params.collect_metrics,
+                stop_patience=params.stop_patience,
+                stop_frontier=params.stop_frontier,
+                # the rank only means something under a frontier stop: the
+                # JAX search ignores it without one, search_batch raises
+                frontier_rank=params.frontier_rank if params.stop_frontier > 0 else 0,
+                stop_fn=params.stop_fn,
+                **seed_kwargs,
             )
-            res = SearchResults(rd, ri, res.hops, res.dist_comps, res.last_improve)
-        dists = res.dists.cpu().numpy()
-        ids = res.ids.cpu().numpy()
-        labels = np.where(
-            ids < len(labels_np), labels_np[np.minimum(ids, len(labels_np) - 1)], -1
-        )
-        labels = np.where(np.isfinite(dists), labels, -1)
-        self.last_metrics = SearchResults(
-            res.dists, res.ids, res.hops.cpu().numpy(),
-            res.dist_comps.cpu().numpy(), res.last_improve.cpu().numpy(),
-        )
-        return dists, labels
+        if m_res >= params.k and m_res > 0:
+            with span("hnsw.search.rescore"):
+                rd, ri = _rescore_topk(
+                    q, x, res.ids, res.dists, k=params.k, m=m_res,
+                    space=self.space.name,
+                )
+                res = SearchResults(rd, ri, res.hops, res.dist_comps, res.last_improve)
+        with span("hnsw.search.d2h"):
+            # each .cpu() blocks on the card: only the answers are copied
+            # unless the caller asked for the per-query counts
+            copied = (res.dists, res.ids)
+            if params.collect_metrics:
+                copied += (res.hops, res.dist_comps, res.last_improve)
+            COUNTS.host_syncs += len(copied)
+            dists, ids, *counts = (t.cpu().numpy() for t in copied)
+            if not counts:
+                counts = [np.zeros(res.hops.shape, np.int32) for _ in range(3)]
+            labels = np.where(
+                ids < len(labels_np), labels_np[np.minimum(ids, len(labels_np) - 1)], -1
+            )
+            labels = np.where(np.isfinite(dists), labels, -1)
+            self.last_metrics = SearchResults(res.dists, res.ids, *counts)
+            return dists, labels
 
     def _landmark_arrays(self, pool_extra: int = 0):
         """landmark_arrays cached per (device state, pool_extra): a sync

@@ -30,7 +30,8 @@
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises. ``COUNTS`` records every
 launch, and every call of a plain version on a CUDA tensor, so a run can
-show which path it took.
+show which path it took, beside the search's beam iterations and host
+syncs.
 """
 
 from __future__ import annotations
@@ -47,8 +48,10 @@ from hnsw_tpu_torch.ops.distance import gather_dist
 
 @dataclasses.dataclass
 class KernelCounts:
-    """Launch counts of the CUDA kernels, and calls of their plain versions
-    on CUDA tensors (chip_smoke.py holds the main path to zero of those)."""
+    """The program's host-side counts: launches of the CUDA kernels, calls
+    of their plain versions on CUDA tensors (chip_smoke.py holds the main
+    path to zero of those), and the search's own steps. Plain integers,
+    bumped on the host: counting costs no device work."""
 
     hop_dist_unified: int = 0  # bf16 rows
     hop_dist_unified8: int = 0
@@ -57,6 +60,12 @@ class KernelCounts:
     gather_dist_rows: int = 0  # f32 table
     gather_dist_bf16: int = 0
     plain_on_cuda: int = 0
+    # level-0 beam iterations, counted by the loop itself (ops/traversal.py
+    # _beam_level0), not by a kernel wrapper
+    beam_iters: int = 0
+    # blocking device-to-host reads on the search path: the beam loop's and
+    # the greedy descent's termination checks, HNSWIndex.search's copies
+    host_syncs: int = 0
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):

@@ -25,6 +25,12 @@ and `hops`, `dist_comps` and `last_improve` do not move (`improved` needs
 `active`). It may set expanded flags and push sentinel ids into the ring
 history, neither of which is an output. The same holds for the greedy
 descent: an iteration at a fixed point improves nothing and changes nothing.
+
+Measurement: while a torch profiler runs, the `hnsw.search.descent` span
+(utils/trace.py) holds the descent, and the `hnsw.beam.*` spans tile each
+iteration (check, select, hop, dedup, merge, stop). `COUNTS.beam_iters`
+counts iterations at the loop itself, `COUNTS.host_syncs` every check that
+reads back.
 """
 
 from __future__ import annotations
@@ -36,10 +42,12 @@ import torch
 from hnsw_tpu_torch.core.graph import DeviceGraph
 from hnsw_tpu_torch.ops.distance import gather_dist
 from hnsw_tpu_torch.ops.gather_kernels import (
+    COUNTS,
     UnifiedTable,
     hop_dist_inline,
     hop_dist_unified,
 )
+from hnsw_tpu_torch.utils.trace import span
 
 _INF = float("inf")
 
@@ -79,6 +87,7 @@ def _greedy_walk(step, cur, cur_d, check_every):
             improved = best_d < cur_d
             cur = torch.where(improved, best, cur)
             cur_d = torch.where(improved, best_d, cur_d)
+        COUNTS.host_syncs += 1
         if not bool(improved.any()):
             return cur, cur_d
 
@@ -281,15 +290,16 @@ def search_batch(
             # invalid/negative overrides fall back to the graph entry point
             e = entry_ids.to(device=dev, dtype=torch.int32)
             cur = torch.where((e >= 0) & (e < num_nodes), e, cur)
-        # an empty graph (entry point -1) parks on the dummy row at +inf
-        ent_ok = (cur >= 0) & (cur < num_nodes)
-        cur = torch.where(ent_ok, cur, sent)
-        cur_d = gather_dist(q, vectors, cur[:, None], space, x_sq_norms=sq_norms)[:, 0]
-        cur_d = torch.where(ent_ok, cur_d, _INF)
-        cur, cur_d = _descend(
-            q, vectors, sq_norms, graph, upper_tables, cur, cur_d, space,
-            check_every,
-        )
+        with span("hnsw.search.descent"):
+            # an empty graph (entry point -1) parks on the dummy row at +inf
+            ent_ok = (cur >= 0) & (cur < num_nodes)
+            cur = torch.where(ent_ok, cur, sent)
+            cur_d = gather_dist(q, vectors, cur[:, None], space, x_sq_norms=sq_norms)[:, 0]
+            cur_d = torch.where(ent_ok, cur_d, _INF)
+            cur, cur_d = _descend(
+                q, vectors, sq_norms, graph, upper_tables, cur, cur_d, space,
+                check_every,
+            )
         beam_d, beam_key, res_d, res_id = empty_lists()
         beam_d[:, 0] = cur_d
         beam_key[:, 0] = cur * 2
@@ -369,79 +379,86 @@ def _beam_level0(
         earlier = (ar[None, :] < ar[:, None])[None]  # [1, EM, EM]: j < i
 
     def alive_any() -> bool:
-        live = ((beam_key & 1) == 0) & (beam_d < _INF)
-        alive = live.any(-1)
-        if use_stop:
-            alive &= ~done
-        return bool(alive.any())
+        with span("hnsw.beam.check"):
+            live = ((beam_key & 1) == 0) & (beam_d < _INF)
+            alive = live.any(-1)
+            if use_stop:
+                alive &= ~done
+            COUNTS.host_syncs += 1
+            return bool(alive.any())
 
     it = 0
     while it < max_iters and alive_any():
         for _ in range(min(check_every, max_iters - it)):
-            beam_id = beam_key >> 1
-            unexp = ((beam_key & 1) == 0) & (beam_d < _INF)
-            active = unexp.any(-1)
-            if use_stop:
-                active &= ~done
+            COUNTS.beam_iters += 1
+            with span("hnsw.beam.select"):
+                beam_id = beam_key >> 1
+                unexp = ((beam_key & 1) == 0) & (beam_d < _INF)
+                active = unexp.any(-1)
+                if use_stop:
+                    active &= ~done
+                chosen, new_exp = _select_expand(beam_id, unexp, expand, sent)
+                beam_key2 = beam_key | new_exp.to(torch.int32)
 
-            chosen, new_exp = _select_expand(beam_id, unexp, expand, sent)
-            beam_key2 = beam_key | new_exp.to(torch.int32)
+            with span("hnsw.beam.hop"):
+                if unified_table is not None:
+                    d, nbrs = hop_dist_unified(q, unified_table, chosen, space)
+                elif nbr_vectors is not None:
+                    d, nbrs = hop_dist_inline(q, nbr_vectors, graph.level0, chosen, space)
+                else:
+                    nbrs = graph.level0[chosen.long()].reshape(b, em)
+                    safe_n = torch.where(nbrs < n_pad, nbrs, sent)
+                    d = gather_dist(q, vectors, safe_n, space, x_sq_norms=sq_norms)
 
-            if unified_table is not None:
-                d, nbrs = hop_dist_unified(q, unified_table, chosen, space)
-            elif nbr_vectors is not None:
-                d, nbrs = hop_dist_inline(q, nbr_vectors, graph.level0, chosen, space)
-            else:
-                nbrs = graph.level0[chosen.long()].reshape(b, em)
-                safe_n = torch.where(nbrs < n_pad, nbrs, sent)
-                d = gather_dist(q, vectors, safe_n, space, x_sq_norms=sq_norms)
+            with span("hnsw.beam.dedup"):
+                # already in the beam, in the ring history, or repeated
+                # earlier in this hop's block (E > 1)
+                in_beam = (nbrs[:, :, None] == beam_id[:, None, :]).any(-1)
+                in_hist = (nbrs[:, :, None] == hist[:, None, :]).any(-1)
+                fresh = (nbrs < num_nodes) & ~in_beam & ~in_hist & active[:, None]
+                if expand > 1:
+                    eq = nbrs[:, :, None] == nbrs[:, None, :]
+                    fresh &= ~(eq & earlier & fresh[:, None, :]).any(-1)
 
-            # dedup: already in the beam, in the ring history, or repeated
-            # earlier in this hop's block (E > 1)
-            in_beam = (nbrs[:, :, None] == beam_id[:, None, :]).any(-1)
-            in_hist = (nbrs[:, :, None] == hist[:, None, :]).any(-1)
-            fresh = (nbrs < num_nodes) & ~in_beam & ~in_hist & active[:, None]
-            if expand > 1:
-                eq = nbrs[:, :, None] == nbrs[:, None, :]
-                fresh &= ~(eq & earlier & fresh[:, None, :]).any(-1)
-
-            d = torch.where(fresh, d, _INF)
-            cand_key = torch.where(fresh, nbrs * 2, sent * 2)
-            beam_d, beam_key = _bitonic_merge_topk(
-                beam_d, beam_key2, d, cand_key, ef, sent * 2
-            )
-            hist = torch.cat([chosen, hist[:, :-expand]], dim=-1)
-
-            if use_mask:
-                safe_n = torch.where(nbrs < n_pad, nbrs, sent)
-                ok = _mask_lookup(eligible, safe_n) & fresh
-                res_d, res_id = _bitonic_merge_topk(
-                    res_d, res_id, torch.where(ok, d, _INF),
-                    torch.where(ok, nbrs, sent), ef, sent,
+            with span("hnsw.beam.merge"):
+                d = torch.where(fresh, d, _INF)
+                cand_key = torch.where(fresh, nbrs * 2, sent * 2)
+                beam_d, beam_key = _bitonic_merge_topk(
+                    beam_d, beam_key2, d, cand_key, ef, sent * 2
                 )
-            best = res_d if use_mask else beam_d
+                hist = torch.cat([chosen, hist[:, :-expand]], dim=-1)
 
-            if track:
-                # top-k improvement <=> the k-th best distance decreased
-                kd = best[:, k - 1]
-                improved = (kd < kd_prev) & active
-                kd_prev = kd
-            if collect_metrics:
-                hops = hops + active.to(torch.int32)
-                dist_comps = dist_comps + fresh.sum(-1, dtype=torch.int32)
-                last_improve = torch.where(improved, it + 1, last_improve)
-            if stop_patience > 0:
-                stall = torch.where(improved, 0, stall + 1)
-                done = done | (stall >= stop_patience)
-            if stop_frontier > 0:
-                unexp2 = ((beam_key & 1) == 0) & (beam_d < _INF)
-                best_unexp = torch.where(unexp2, beam_d, _INF).min(-1).values
-                rank = min(frontier_rank, ef) if frontier_rank > 0 else k
-                fd = best[:, rank - 1]
-                done = done | ((best_unexp > stop_frontier * fd) & (fd < _INF))
-            if stop_fn is not None:
-                view = StopView(beam_d, beam_key >> 1, best, it, hops)
-                done = done | (stop_fn(view) & active)
+                if use_mask:
+                    safe_n = torch.where(nbrs < n_pad, nbrs, sent)
+                    ok = _mask_lookup(eligible, safe_n) & fresh
+                    res_d, res_id = _bitonic_merge_topk(
+                        res_d, res_id, torch.where(ok, d, _INF),
+                        torch.where(ok, nbrs, sent), ef, sent,
+                    )
+                best = res_d if use_mask else beam_d
+
+            with span("hnsw.beam.stop"):
+                if track:
+                    # top-k improvement <=> the k-th best distance decreased
+                    kd = best[:, k - 1]
+                    improved = (kd < kd_prev) & active
+                    kd_prev = kd
+                if collect_metrics:
+                    hops = hops + active.to(torch.int32)
+                    dist_comps = dist_comps + fresh.sum(-1, dtype=torch.int32)
+                    last_improve = torch.where(improved, it + 1, last_improve)
+                if stop_patience > 0:
+                    stall = torch.where(improved, 0, stall + 1)
+                    done = done | (stall >= stop_patience)
+                if stop_frontier > 0:
+                    unexp2 = ((beam_key & 1) == 0) & (beam_d < _INF)
+                    best_unexp = torch.where(unexp2, beam_d, _INF).min(-1).values
+                    rank = min(frontier_rank, ef) if frontier_rank > 0 else k
+                    fd = best[:, rank - 1]
+                    done = done | ((best_unexp > stop_frontier * fd) & (fd < _INF))
+                if stop_fn is not None:
+                    view = StopView(beam_d, beam_key >> 1, best, it, hops)
+                    done = done | (stop_fn(view) & active)
             it += 1
 
     if use_mask:
