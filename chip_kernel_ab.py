@@ -29,6 +29,12 @@ import numpy as np
 import chip_smoke as cs
 
 
+# the C entries this tool times on the parent's library (an older library
+# lacks the seed kernel's)
+PARENT_ENTRIES = ("hop_dist_unified_bf16", "hop_dist_unified_int8", "hop_dist_unified_int4",
+                  "hop_dist_inline", "gather_dist_f32", "gather_dist_bf16")
+
+
 def build_parent(parent_dir: str) -> ctypes.CDLL:
     """The parent's kernels, compiled from its csrc by this tree's build and
     bound with this tree's signatures (the C entries keep PR 2's)."""
@@ -44,7 +50,12 @@ def build_parent(parent_dir: str) -> ctypes.CDLL:
         cuda_lib._compile(path)
     finally:
         cuda_lib.CSRC_DIR, cuda_lib.LOG_PATH = saved
-    return cuda_lib.declare(ctypes.CDLL(path))
+    lib = ctypes.CDLL(path)
+    for name in PARENT_ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = cuda_lib.ENTRIES[name]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 class Using:

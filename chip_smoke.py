@@ -9,7 +9,9 @@ Phase 1  builds the CUDA kernels from hnsw_tpu_torch/csrc and holds each
          hops of the node-block ring, the split hop against the unified
          bf16 hop bit for bit, the two gathers), with times from CUDA
          events: warm, and cold (a fresh `chosen` or `ids` per launch on
-         tables far past the L2) for every hop and gather row.
+         tables far past the L2) for every hop and gather row; the landmark
+         seeds' top-s at the benchmark's shape, warm, beside its plain
+         version and bruteforce_topk.
 Phase 2  the main path at bench.py's operating point (N=100k clustered
          vectors, d=128, M=16, efC=200, k=10): host build, device sync, then
          (a) the seeded speed mode at batch 8192, (b) the default descent at
@@ -107,6 +109,9 @@ import numpy as np
 
 N, DIM, M, EF_C, K = 100_000, 128, 16, 200, 10
 BATCH = 8192
+# the kernels' launch counters (ops/gather_kernels.COUNTS), summed over the phases
+LAUNCHES = ("hop_dist_unified", "hop_dist_unified8", "hop_dist_unified4", "gather_dist_rows",
+            "gather_dist_bf16", "hop_dist_inline", "seed_topk")
 SEED = 123
 EXPECTED_RECALL = 0.9945  # bench.py's operating point, for information only
 N_TIERS, N_U8, NQ_TIERS = 2_000_000, 2_000_000, 1024
@@ -416,8 +421,64 @@ def phase1(dev) -> dict:
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     for name, res in gather_cold_cases(dev, gen).items():
         out[name].update(res)
+    out["seed_topk"] = seed_topk_case(dev)
     torch.cuda.empty_cache()  # phase 1's tables are gone: the card is free again
     return out
+
+
+def seed_topk_case(dev) -> dict:
+    """The landmark seeds' kernel (csrc/seed_topk.cu) at the benchmark
+    cells' shape, B 8,192 x NL 62,500 x D 128, s 4 (L2): held to its plain
+    version (distances within 1e-2 at |q|^2 + |x|^2 ~ 256, positions equal
+    but for near ties), then timed warm in turns with it, and beside
+    bruteforce_topk, the matmul and top_k it replaced on this path (the
+    library yardstick), with each one's peak device memory above its
+    inputs."""
+    import torch
+
+    from hnsw_tpu_torch.ops.gather_kernels import COUNTS
+    from hnsw_tpu_torch.ops.topk import bruteforce_topk, seed_topk, seed_topk_plain
+
+    b, nl, d, s = BATCH, 62_500, DIM, 4
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    q = torch.randn((b, d), generator=g, device=dev)
+    x = torch.randn((nl, d), generator=g, device=dev)
+    xsq = (x * x).sum(-1)
+    kernel = lambda: seed_topk(q, x, s, "l2", x_sq_norms=xsq)  # noqa: E731
+    plain = lambda: seed_topk_plain(q, x, s, "l2", x_sq_norms=xsq)  # noqa: E731
+    library = lambda: bruteforce_topk(q, x, s, "l2", x_sq_norms=xsq)  # noqa: E731
+
+    def peak_mb(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+    COUNTS.reset()
+    kd, ki = kernel()
+    torch.cuda.synchronize()
+    if COUNTS.seed_topk != 1 or COUNTS.plain_on_cuda:
+        fail(f"seed_topk: {COUNTS.seed_topk} launches, {COUNTS.plain_on_cuda} plain")
+    pd, pi = plain()
+    err = float((kd - pd).abs().max())
+    swapped = float((ki != pi).float().mean())
+    if err > 1e-2 or swapped > 1e-3:
+        fail(f"seed_topk: max_abs_err {err:.3e}, positions differ at {swapped:.2e}")
+    ms, pms = timed_pair(kernel, plain)
+    lms = cuda_ms(library)
+    nbytes = (b * d + nl * d + nl) * 4 + b * s * 12
+    res = {"max_abs_err": err, "swapped": swapped, "ms": ms, "plain_ms": pms,
+           "library_ms": lms, "peak_mb": peak_mb(kernel), "library_peak_mb": peak_mb(library),
+           **bound(nbytes, 2.0 * b * nl * d)}
+    log(f"[phase1] seed_topk B={b} NL={nl} d={d} s={s}: ok, max_abs_err {err:.3e}, "
+        f"positions differ at {swapped:.2e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"bruteforce_topk {lms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"peak above inputs {res['peak_mb']:.1f} MB (bruteforce_topk "
+        f"{res['library_peak_mb']:.1f} MB)")
+    return res
 
 
 def dev_table(dev, gen, tier, rows, m0, d, exact=False):
@@ -857,7 +918,7 @@ def phase2(dev, launches) -> dict:
     # (a) speed mode, bench.py:233-261
     pa = SearchParams(k=K, ef=160, expand=2, stop_frontier=1.15, max_iters=14, entry_seeds=4)
     _, lab_a, qps_a, c_a = run_mode(idx, "a", q, 5, launches, params=pa)
-    need_launch("a", c_a, "hop_dist_unified")
+    need_launch("a", c_a, "hop_dist_unified", "seed_topk")
     rec_a = recall(lab_a, gt)
     log(f"[phase2] (a) speed mode, batch {BATCH}: recall@10 {rec_a:.4f} "
         f"(delta {rec_a - EXPECTED_RECALL:+.4f} from {EXPECTED_RECALL}), "
@@ -2606,9 +2667,7 @@ def phase9_rank(rank, world, dp, init, prefix, qfile, out) -> None:
             res["d_" + name], res["l_" + name] = idx.search(q, **kw)
             torch.cuda.synchronize()
             info[name] = {"seconds": time.time() - t0, "plain_on_cuda": COUNTS.plain_on_cuda,
-                          "counts": {f: getattr(COUNTS, f) for f in (
-                              "hop_dist_unified", "hop_dist_unified8", "hop_dist_unified4",
-                              "gather_dist_rows", "gather_dist_bf16", "hop_dist_inline")}}
+                          "counts": {f: getattr(COUNTS, f) for f in LAUNCHES}}
         np.savez(f"{out}.{rank}.npz", **res)
         with open(f"{out}.{rank}.json", "w") as f:
             json.dump(info, f)
@@ -2723,8 +2782,7 @@ def main() -> int:
 
     k1 = phase1(dev)
     mark("1")
-    launches = {"hop_dist_unified": 0, "hop_dist_unified8": 0, "hop_dist_unified4": 0,
-                "gather_dist_rows": 0, "gather_dist_bf16": 0, "hop_dist_inline": 0}
+    launches = dict.fromkeys(LAUNCHES, 0)
     p2 = phase2(dev, launches)
     mark("2")
     p3 = phase3(dev, launches)
@@ -2772,6 +2830,7 @@ def main() -> int:
         ("hop_dist_unified4", "hop_int4", "hop_ring.cuh", "pallas_gather.py:795"),
         ("gather_dist_bf16", "gather_bf16", "gather_dist_bf16.cu", "pallas_gather.py:1026"),
         ("hop_dist_inline", "hop_inline", "hop_ring.cuh", "pallas_gather.py:214"),
+        ("seed_topk", "seed_topk", "seed_topk.cu", "topk.py bruteforce_topk (XLA, no Pallas)"),
     ]
     kernels = []
     for counter, key, src, tpu in rows:

@@ -57,7 +57,7 @@ from hnsw_tpu_torch.models.hnsw import (
 from hnsw_tpu_torch.native.hnsw_builder import NativeHNSWBuilder
 from hnsw_tpu_torch.ops.distance import matmul_precision
 from hnsw_tpu_torch.ops.gather_kernels import COUNTS, tier_bytes
-from hnsw_tpu_torch.ops.topk import bruteforce_topk
+from hnsw_tpu_torch.ops.topk import seed_topk
 from hnsw_tpu_torch.ops.traversal import search_batch
 
 
@@ -162,13 +162,13 @@ def wave_device_step(
     t0 = time.time()
     seed_kwargs = {}
     if entry_seeds > 0 and dg.max_level > 0:
-        # one matrix product over the upper-level nodes (plus seed_pool
-        # strided level-0 nodes) replaces the greedy descent
+        # an exact top-s over the upper-level nodes (plus seed_pool strided
+        # level-0 nodes) replaces the greedy descent
         lm = landmark_arrays(dg, x, sq, pool_extra=seed_pool)
         if lm is not None:
             lv, li, lsq = lm
             s = min(entry_seeds, int(li.shape[0]), k_sel)
-            sd, si = bruteforce_topk(q, lv, s, space, x_sq_norms=lsq)
+            sd, si = seed_topk(q, lv, s, space, x_sq_norms=lsq)
             seed_kwargs = {"seed_ids": li[si], "seed_dists": sd}
     res = search_batch(
         x, dg, q, k=k_sel, ef=ef_construction, space=space, sq_norms=sq,

@@ -43,7 +43,7 @@ from hnsw_tpu_torch.ops.gather_kernels import (
     quantize_for_tier,
     upper_level_sizes_u,
 )
-from hnsw_tpu_torch.ops.topk import bruteforce_topk, topk_smallest
+from hnsw_tpu_torch.ops.topk import seed_topk, topk_smallest
 from hnsw_tpu_torch.ops.traversal import SearchResults, search_batch
 from hnsw_tpu_torch.utils.trace import span
 
@@ -173,7 +173,7 @@ def landmark_arrays(dg, x, sq, pool_extra: int = 0):
             sel = cand[np.linspace(0, len(cand) - 1, want).astype(np.int64)]
             ids = np.concatenate([ids, sel.astype(np.int32)])
     li = torch.from_numpy(ids).to(x.device)
-    lv = x[li.long()]
+    lv = x[li.long()].float()  # the seed kernel takes contiguous f32 rows
     lsq = None if sq is None else sq[li.long()]
     return lv, li, lsq
 
@@ -712,7 +712,7 @@ class HNSWIndex:
                     lv, li, lsq = lm
                     s = min(params.entry_seeds, int(li.shape[0]),
                             max(params.ef, k_search))
-                    sd, si = bruteforce_topk(q, lv, s, self.space.name, x_sq_norms=lsq)
+                    sd, si = seed_topk(q, lv, s, self.space.name, x_sq_norms=lsq)
                     seed_kwargs = {"seed_ids": li[si], "seed_dists": sd}
 
         with span("hnsw.search.beam"):

@@ -87,22 +87,28 @@ def load_kernels() -> ctypes.CDLL:
         return _LIB[0]
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_HOP = [_I, _I, _I, _I, _L, _I, _P]  # B, E, m0, d_pad, R, ip, stream
+_GATHER = [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P]
+# the argument types of each C entry of the kernel library
+ENTRIES = {
+    "hop_dist_unified_bf16": [_P] * 6 + _HOP,
+    "hop_dist_unified_int8": [_P] * 7 + _HOP,
+    "hop_dist_unified_int4": [_P] * 7 + _HOP,
+    "hop_dist_inline": [_P] * 6 + _HOP,
+    "gather_dist_f32": _GATHER,
+    "gather_dist_bf16": _GATHER,
+    "seed_topk_slices": [_I, _I, _I],  # B, NL, s
+    "seed_topk": [_P] * 7 + [_I] * 6 + [_P],  # ..., B, NL, D, s, slices, ip, stream
+}
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument and result types of the six C entries on `lib`."""
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    hop = [I, I, I, I, L, I, P]  # B, E, m0, d_pad, R, ip, stream
-    gather = [P, P, P, P, I, I, I, L, I, P]
-    for name, args in (
-        ("hop_dist_unified_bf16", [P] * 6 + hop),
-        ("hop_dist_unified_int8", [P] * 7 + hop),
-        ("hop_dist_unified_int4", [P] * 7 + hop),
-        ("hop_dist_inline", [P] * 6 + hop),
-        ("gather_dist_f32", gather),
-        ("gather_dist_bf16", gather),
-    ):
+    """Set the argument and result types of the C entries on `lib`."""
+    for name, args in ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = I
+        fn.restype = _I
     return lib
 
 

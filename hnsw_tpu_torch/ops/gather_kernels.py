@@ -59,6 +59,7 @@ class KernelCounts:
     hop_dist_inline: int = 0  # the split tier
     gather_dist_rows: int = 0  # f32 table
     gather_dist_bf16: int = 0
+    seed_topk: int = 0  # the landmark seeds (ops/topk.py seed_topk)
     plain_on_cuda: int = 0
     # level-0 beam iterations, counted by the loop itself (ops/traversal.py
     # _beam_level0), not by a kernel wrapper

@@ -261,11 +261,11 @@ class _Engine:
         lm = self._landmarks(seed_pool)
         if lm is None:
             return {}
-        from hnsw_tpu_torch.ops.topk import bruteforce_topk
+        from hnsw_tpu_torch.ops.topk import seed_topk
 
         lv, li, lsq = lm
         s = min(entry_seeds, int(li.shape[0]), max(ef, k))
-        sd, si = bruteforce_topk(q, lv, s, self.space, x_sq_norms=lsq)
+        sd, si = seed_topk(q, lv, s, self.space, x_sq_norms=lsq)
         return {"seed_ids": li[si], "seed_dists": sd}
 
     def search(self, queries: np.ndarray, k: int, ef: int, entry_ids=None,
